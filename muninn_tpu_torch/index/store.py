@@ -1,0 +1,169 @@
+"""Vector store with external-id mapping, the PyTorch port of
+``muninn_tpu/index/store.py``.
+
+A padded ``float32[cap, d]`` tensor and a validity mask on the index's
+device, with the int64 external-id <-> int32 slot map kept on the host.
+Appends and deletes update the device tensors in place (slice and index
+assignment); capacity grows by doubling, rounded to ``pad_multiple``.
+"""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def _round_up(n: int, m: int) -> int:
+    return ((n + m - 1) // m) * m
+
+
+class VectorStore:
+    """Append-oriented vector storage. Slots are dense int32; external ids
+    are arbitrary int64."""
+
+    def __init__(self, dim: int, capacity: int = 1024, pad_multiple: int = 1024,
+                 *, device: str | torch.device = "cpu"):
+        self.dim = int(dim)
+        self.pad_multiple = int(pad_multiple)
+        self.device = torch.device(device)
+        capacity = _round_up(max(int(capacity), pad_multiple), pad_multiple)
+        self.vectors = torch.zeros((capacity, self.dim), dtype=torch.float32,
+                                   device=self.device)
+        self.valid = torch.zeros((capacity,), dtype=torch.bool,
+                                 device=self.device)
+        self._slot_of: dict[int, int] = {}
+        self._id_of = np.full((capacity,), -1, np.int64)
+        self._count = 0          # live rows
+        self._high = 0           # first never-used slot
+
+    @property
+    def capacity(self) -> int:
+        return self.vectors.shape[0]
+
+    def __len__(self) -> int:
+        return self._count
+
+    @property
+    def high_watermark(self) -> int:
+        return self._high
+
+    def _grow(self, need: int) -> None:
+        cap = self.capacity
+        new_cap = cap
+        while new_cap < need:
+            new_cap *= 2
+        new_cap = _round_up(new_cap, self.pad_multiple)
+        vectors = torch.zeros((new_cap, self.dim), dtype=torch.float32,
+                              device=self.device)
+        vectors[:cap] = self.vectors
+        valid = torch.zeros((new_cap,), dtype=torch.bool, device=self.device)
+        valid[:cap] = self.valid
+        self.vectors, self.valid = vectors, valid
+        self._id_of = np.pad(self._id_of, (0, new_cap - cap), constant_values=-1)
+
+    def reserve(self, n: int) -> None:
+        if self._high + n > self.capacity:
+            self._grow(self._high + n)
+
+    def _check_new(self, ids: np.ndarray) -> list[int]:
+        id_list = ids.tolist()
+        dups = self._slot_of.keys() & set(id_list)
+        if dups:
+            raise ValueError(f"duplicate id {next(iter(dups))}")
+        if len(set(id_list)) != len(id_list):
+            raise ValueError("duplicate id within batch")
+        return id_list
+
+    def register(self, ids: np.ndarray, reserve_extra: int = 0) -> np.ndarray:
+        """Host-only bookkeeping of an append: assigns contiguous slots and
+        records the id mapping without device writes (the caller writes the
+        rows and validity itself). Reserves room for ``n + reserve_extra``
+        rows."""
+        ids = np.asarray(ids, np.int64)
+        id_list = self._check_new(ids)
+        n = len(id_list)
+        self.reserve(n + reserve_extra)
+        slots = np.arange(self._high, self._high + n, dtype=np.int32)
+        self._slot_of.update(zip(id_list, slots.tolist()))
+        self._id_of[slots] = ids
+        self._high += n
+        self._count += n
+        return slots
+
+    def add(self, ids: np.ndarray, vectors) -> np.ndarray:
+        """Append a batch. ``ids`` int64 [n]; returns the assigned slots,
+        int32 [n]. Duplicate ids raise ValueError."""
+        ids = np.asarray(ids, np.int64)
+        vecs = torch.as_tensor(vectors, dtype=torch.float32)
+        vecs = vecs.reshape(len(ids), self.dim)
+        slots = self.register(ids)
+        if len(slots):
+            # slots are contiguous: one in-place slice write per tensor
+            lo, hi = int(slots[0]), int(slots[-1]) + 1
+            self.vectors[lo:hi] = vecs.to(self.device)
+            self.valid[lo:hi] = True
+        return slots
+
+    def unregister(self, ids: np.ndarray) -> np.ndarray:
+        """Host-only bookkeeping of a soft delete: drops the id mapping and
+        returns the freed slots without touching the validity mask."""
+        ids = np.asarray(ids, np.int64)
+        slots = np.array([self._slot_of[int(i)] for i in ids], np.int32)
+        for i in ids.tolist():
+            del self._slot_of[i]
+        self._id_of[slots] = -1
+        self._count -= len(slots)
+        return slots
+
+    def remove(self, ids: np.ndarray) -> np.ndarray:
+        """Soft-delete by external id. Returns the freed slots (int32).
+        Unknown ids raise KeyError, before anything changes."""
+        slots = self.unregister(ids)
+        if len(slots):
+            self.valid[torch.as_tensor(slots, dtype=torch.long,
+                                       device=self.device)] = False
+        return slots
+
+    def restore(self, vectors: np.ndarray, id_of: np.ndarray) -> None:
+        """Replace the contents with ``vectors [hw, d]`` and ``id_of [hw]``
+        (-1 on free slots): the slot map, live count, validity and high
+        watermark are rebuilt from ``id_of``."""
+        vectors = np.asarray(vectors, np.float32)
+        id_of = np.asarray(id_of, np.int64)
+        hw = id_of.shape[0]
+        if vectors.shape != (hw, self.dim):
+            raise ValueError(
+                f"vectors have shape {vectors.shape}, want ({hw}, {self.dim})"
+            )
+        live = np.flatnonzero(id_of >= 0)
+        if len(np.unique(id_of[live])) != len(live):
+            raise ValueError("duplicate id in id_of")
+        self._slot_of = {}
+        self._id_of = np.full((self.capacity,), -1, np.int64)
+        self._high = self._count = 0
+        self.reserve(hw)
+        self.vectors.zero_()
+        self.valid.zero_()
+        self.vectors[:hw] = torch.tensor(vectors, device=self.device)
+        self.valid[:hw] = torch.tensor(id_of >= 0, device=self.device)
+        self._id_of[:hw] = id_of
+        self._slot_of = dict(zip(id_of[live].tolist(), live.tolist()))
+        self._count = len(live)
+        self._high = hw
+
+    def slot(self, id_: int) -> int | None:
+        return self._slot_of.get(int(id_))
+
+    def slots_of(self, ids) -> np.ndarray:
+        return np.array([self._slot_of[int(i)] for i in ids], np.int32)
+
+    def ids_of(self, slots) -> np.ndarray:
+        """Map slots back to external ids (-1 for a free slot or -1 input)."""
+        slots = np.asarray(slots)
+        return np.where(slots >= 0, self._id_of[np.maximum(slots, 0)], -1)
+
+    def get_vector(self, id_: int) -> np.ndarray | None:
+        s = self.slot(id_)
+        if s is None or not bool(self.valid[s]):
+            return None
+        return self.vectors[s].cpu().numpy()

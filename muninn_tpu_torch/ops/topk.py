@@ -1,0 +1,86 @@
+"""Masked top-k and sorted merge, the PyTorch port of
+``muninn_tpu/ops/topk.py``.
+
+Convention throughout: distances are "smaller = better"; invalid slots
+carry ``inf`` distance and id ``-1``.
+"""
+
+from __future__ import annotations
+
+import torch
+
+INVALID_ID = -1
+
+
+def masked_topk(
+    dists: torch.Tensor,
+    k: int,
+    *,
+    mask: torch.Tensor | None = None,
+    ids: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Smallest-k of ``dists [..., N]`` with optional validity ``mask``.
+
+    Returns ``(top_dists [..., k], top_ids [..., k])`` sorted ascending;
+    masked-out or out-of-range slots come back as ``(inf, -1)``. ``ids``
+    (optional, aligned with the last axis) replaces positional indices.
+    """
+    n = dists.shape[-1]
+    d = dists.float()
+    if mask is not None:
+        d = torch.where(mask, d, torch.full_like(d, float("inf")))
+    kk = min(k, n)
+    top_d, top_idx = torch.topk(d, kk, dim=-1, largest=False, sorted=True)
+    if ids is None:
+        top_ids = top_idx.to(torch.int32)
+    else:
+        top_ids = torch.gather(
+            ids.expand(dists.shape), -1, top_idx
+        ).to(torch.int32)
+    top_ids = torch.where(
+        torch.isinf(top_d), torch.full_like(top_ids, INVALID_ID), top_ids
+    )
+    if kk < k:  # pad to the requested k with invalid slots
+        pad = (0, k - kk)
+        top_d = torch.nn.functional.pad(top_d, pad, value=float("inf"))
+        top_ids = torch.nn.functional.pad(top_ids, pad, value=INVALID_ID)
+    return top_d, top_ids
+
+
+def _dedup_ids(
+    dists: torch.Tensor, ids: torch.Tensor
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Invalidate duplicate ids, keeping the best occurrence: sort by
+    (id, dist); a slot whose id equals its sorted predecessor's becomes
+    ``(inf, -1)``."""
+    order = torch.sort(dists, dim=-1, stable=True).indices
+    order = torch.gather(
+        order, -1,
+        torch.sort(torch.gather(ids, -1, order), dim=-1, stable=True).indices,
+    )
+    sd = torch.gather(dists, -1, order)
+    si = torch.gather(ids, -1, order)
+    prev = torch.cat([torch.full_like(si[..., :1], -2), si[..., :-1]], dim=-1)
+    dup = (si == prev) & (si != INVALID_ID)
+    sd = torch.where(dup, torch.full_like(sd, float("inf")), sd)
+    si = torch.where(dup, torch.full_like(si, INVALID_ID), si)
+    return sd, si
+
+
+def merge_topk(
+    dists_a: torch.Tensor,
+    ids_a: torch.Tensor,
+    dists_b: torch.Tensor,
+    ids_b: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Merge two sorted-ascending (dist, id) sets along the last axis,
+    keeping the ``ka`` smallest (the width of set ``a``). An id present in
+    both sets survives once, with its best distance."""
+    ka = dists_a.shape[-1]
+    d, i = _dedup_ids(
+        torch.cat([dists_a, dists_b], dim=-1), torch.cat([ids_a, ids_b], dim=-1)
+    )
+    order = torch.sort(d, dim=-1, stable=True).indices
+    d = torch.gather(d, -1, order)
+    i = torch.gather(i, -1, order)
+    return d[..., :ka], i[..., :ka]

@@ -1,0 +1,263 @@
+"""muninn_tpu_torch's exact flat search against muninn_tpu's on the CPU.
+
+The same seeded numpy inputs go through the JAX function and its port:
+``flat_topk`` against the JAX kernel's own CPU route (``interpret=True``),
+``FlatIndex`` against the JAX ``FlatIndex(use_pallas=False)``, and a JAX
+index carried across with ``index.convert``. Data is continuous Gaussian,
+so there are no ties and the ids must be equal.
+"""
+
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from muninn_tpu.index.flat import FlatIndex as JaxFlatIndex
+from muninn_tpu.index.flat import _xla_chunked_topk
+from muninn_tpu.ops.distance import Metric as JaxMetric
+from muninn_tpu.ops.pallas_flat import flat_topk as jax_flat_topk
+from muninn_tpu_torch import FlatIndex
+from muninn_tpu_torch.index.convert import flat_index_from_numpy, flat_index_to_numpy
+from muninn_tpu_torch.ops import _build
+from muninn_tpu_torch.ops import flat_topk as flat_topk_mod
+from muninn_tpu_torch.ops.flat_topk import (
+    MAX_K,
+    flat_topk,
+    flat_topk_cuda,
+    flat_topk_plain,
+)
+
+REPO = Path(__file__).resolve().parents[1]
+METRICS = ["l2", "cosine", "inner_product"]
+
+
+def _data(seed, b, n, d, masked):
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    c = rng.standard_normal((n, d)).astype(np.float32)
+    valid = rng.random(n) < 0.7 if masked else None
+    return q, c, valid
+
+
+# (B, N, d, k, masked): B and N multiples of nothing, d = 40 and 100, k in
+# {1, 10, 64}, and k > N in the last
+SHAPES = [(7, 1001, 40, 1, False), (13, 2999, 100, 10, True),
+          (5, 777, 40, 64, True), (3, 50, 100, 64, True)]
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("shape", SHAPES, ids=lambda s: "b{}_n{}_d{}_k{}".format(*s))
+def test_flat_topk_matches_jax_interpret(metric, shape):
+    b, n, d, k, masked = shape
+    q, c, valid = _data(sum(shape[:4]), b, n, d, masked)
+    wd, wi = jax_flat_topk(
+        jnp.asarray(q), jnp.asarray(c), k, metric=metric,
+        corpus_valid=None if valid is None else jnp.asarray(valid),
+        interpret=True,
+    )
+    gd, gi = flat_topk(
+        torch.from_numpy(q), torch.from_numpy(c), k, metric=metric,
+        corpus_valid=None if valid is None else torch.from_numpy(valid),
+    )
+    gd, gi = gd.numpy(), gi.numpy()
+    assert gd.shape == (b, k) and gi.dtype == np.int32
+    np.testing.assert_array_equal(gi, np.asarray(wi))
+    # same f32 products, summed in another order by another BLAS
+    np.testing.assert_allclose(gd, np.asarray(wd), rtol=1e-5, atol=1e-6)
+    if n < k:
+        live = int(valid.sum())
+        assert (gi[:, live:] == -1).all() and np.isinf(gd[:, live:]).all()
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_chunked_plain_matches_jax_xla_chunked(metric, monkeypatch):
+    """flat_topk_plain, merging chunks of 128 rows (700 rows: 6 chunks, the
+    last ragged), against the JAX chunked reference at the same chunk."""
+    monkeypatch.setattr(flat_topk_mod, "_CHUNK", 128)
+    q, c, valid = _data(11, 6, 700, 24, True)
+    wd, wi = _xla_chunked_topk(jnp.asarray(q), jnp.asarray(c), jnp.asarray(valid),
+                               7, JaxMetric(metric), chunk=128)
+    gd, gi = flat_topk_plain(torch.from_numpy(q), torch.from_numpy(c), 7,
+                             metric=metric, corpus_valid=torch.from_numpy(valid))
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    # JAX forms l2 as qn + cn - 2*dot and cosine as dot / (|q| |c|), the
+    # port as (qn - 2*dot) + cn and a dot of unit rows: the same values up
+    # to f32 rounding of distances of magnitude ~50 (l2) and ~1
+    np.testing.assert_allclose(gd.numpy(), np.asarray(wd), rtol=1e-5, atol=1e-5)
+
+
+def _assert_same_search(tidx, jidx, q, k, metric):
+    ti, tdist = tidx.search(q, k=k)
+    ji, jdist = jidx.search(q, k=k)
+    np.testing.assert_array_equal(ti, ji)
+    # l2: the JAX XLA route clamps at 0 (distance.py:101) and forms
+    # qn + cn - 2*dot, the kernel route (qn - 2*dot) + cn unclamped
+    # (pallas_flat.py:102); near-duplicate pairs sit at ~1e-4, where the
+    # cancellation of O(100) terms leaves errors of a few 1e-6
+    atol = 1e-5 if metric == "l2" else 1e-6
+    np.testing.assert_allclose(tdist, jdist, rtol=1e-5, atol=atol)
+    return ti
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_flat_index_matches_jax_insert_delete_grow(metric):
+    rng = np.random.default_rng(21)
+    d, k = 48, 10
+    x = rng.standard_normal((1500, d)).astype(np.float32)
+    q = x[rng.integers(0, 700, 9)] + 0.001 * rng.standard_normal((9, d)).astype(np.float32)
+    tidx = FlatIndex(d, metric, capacity=1024)
+    jidx = JaxFlatIndex(d, metric, capacity=1024, use_pallas=False)
+    for idx in (tidx, jidx):
+        idx.insert(np.arange(700) * 3 + 5, x[:700])
+    first = _assert_same_search(tidx, jidx, q, k, metric)
+    dead = np.unique(first[:, :2])
+    for idx in (tidx, jidx):
+        idx.delete(dead)
+    after = _assert_same_search(tidx, jidx, q, k, metric)
+    assert not np.isin(after, dead).any()
+    for idx in (tidx, jidx):  # 700 + 800 rows outgrow capacity 1024
+        idx.insert(np.arange(700, 1500) * 3 + 5, x[700:])
+    assert tidx.store.capacity == jidx.store.capacity == 2048
+    assert len(tidx) == len(jidx) == 1500 - len(dead)
+    _assert_same_search(tidx, jidx, x[1200:1207], k, metric)
+    one_t, one_d = tidx.search(x[1300], k=3)
+    one_j, _ = jidx.search(x[1300], k=3)
+    assert one_t.shape == one_d.shape == (3,)
+    np.testing.assert_array_equal(one_t, one_j)
+
+
+def test_flat_index_search_device_is_slot_space():
+    x = np.random.default_rng(2).standard_normal((40, 8)).astype(np.float32)
+    idx = FlatIndex(8, "l2")
+    idx.insert(np.arange(40) + 500, x)
+    d, slots = idx.search_device(torch.from_numpy(x[:3]), k=2)
+    assert isinstance(d, torch.Tensor) and slots.dtype == torch.int32
+    np.testing.assert_array_equal(slots[:, 0].numpy(), [0, 1, 2])
+    ids, _ = idx.search(x[:3], k=2)
+    np.testing.assert_array_equal(ids, idx.store.ids_of(slots.numpy()))
+
+
+def test_flat_index_errors():
+    idx = FlatIndex(8, "l2")
+    idx.insert([1], np.ones((1, 8), np.float32))
+    with pytest.raises(ValueError, match="query dim 9 != index dim 8"):
+        idx.search(np.zeros(9), k=1)
+    with pytest.raises(ValueError, match="duplicate id"):
+        idx.insert([1], np.ones((1, 8), np.float32))
+    with pytest.raises(KeyError):
+        idx.delete([2])
+    with pytest.raises(ValueError, match="invalid metric"):
+        FlatIndex(8, "euclidean")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FlatIndex(8, "cosine", precision="int8_rescored")
+    with pytest.raises(ValueError, match="precision"):
+        FlatIndex(8, "cosine", precision="fastest")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flat_topk(torch.zeros(1, 8), torch.zeros(4, 8), 1, precision="default")
+
+
+def _jax_state(jidx):
+    hw = jidx.store.high_watermark
+    return {
+        "dim": jidx.dim,
+        "metric": jidx.metric.value,
+        "vectors": np.asarray(jidx.store.vectors[:hw]),
+        "valid": np.asarray(jidx.store.valid[:hw]),
+        "id_of": jidx.store._id_of[:hw].copy(),
+    }
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_carry_jax_index_across(metric):
+    rng = np.random.default_rng(31)
+    d = 40
+    x = rng.standard_normal((900, d)).astype(np.float32)
+    q = rng.standard_normal((6, d)).astype(np.float32)
+    jidx = JaxFlatIndex(d, metric, use_pallas=False)
+    jidx.insert(np.arange(900) + 10_000, x)
+    jidx.delete(np.arange(0, 900, 7) + 10_000)
+    state = _jax_state(jidx)
+    tidx = flat_index_from_numpy(state)
+    assert len(tidx) == len(jidx)
+    assert tidx.store.high_watermark == jidx.store.high_watermark
+    _assert_same_search(tidx, jidx, q, 10, metric)
+    back = flat_index_to_numpy(tidx)
+    assert back["dim"] == state["dim"] and back["metric"] == state["metric"]
+    for key in ("vectors", "valid", "id_of"):
+        np.testing.assert_array_equal(back[key], state[key])
+    # the carried index keeps working: insert after the old high watermark
+    tidx.insert([1], x[:1])
+    ids, _ = tidx.search(x[0], k=1)
+    assert ids[0] == 1
+
+
+def test_carry_rejects_inconsistent_valid():
+    state = {"dim": 2, "metric": "l2", "vectors": np.zeros((2, 2), np.float32),
+             "valid": np.array([True, True]), "id_of": np.array([4, -1])}
+    with pytest.raises(ValueError, match="valid"):
+        flat_index_from_numpy(state)
+
+
+def _run(code, env=None):
+    return subprocess.run(
+        [sys.executable, "-c", textwrap.dedent(code)], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+
+
+def test_import_pulls_in_no_jax():
+    res = _run("""
+        import sys
+        import muninn_tpu_torch
+        from muninn_tpu_torch.index import convert
+        from muninn_tpu_torch.ops import flat_topk
+        bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+               or m == "muninn_tpu" or m.startswith("muninn_tpu.")]
+        assert not bad, bad
+    """)
+    assert res.returncode == 0, res.stderr
+
+
+def test_cpu_path_never_builds_or_launches(tmp_path):
+    """On CPU tensors the plain version runs: no launch is counted and
+    nvcc is never called, neither at import nor at search."""
+    fake = tmp_path / "bin"
+    fake.mkdir()
+    marker = tmp_path / "nvcc_called"
+    nvcc = fake / "nvcc"
+    nvcc.write_text(f"#!/bin/sh\ntouch {marker}\nexit 1\n")
+    nvcc.chmod(0o755)
+    env = dict(os.environ, PATH=f"{fake}{os.pathsep}{os.environ['PATH']}",
+               CUDA_HOME=str(tmp_path))
+    res = _run("""
+        import numpy as np
+        from muninn_tpu_torch.ops import _build
+        from muninn_tpu_torch import FlatIndex
+        idx = FlatIndex(8, "cosine")
+        idx.insert(np.arange(30), np.random.default_rng(0).standard_normal((30, 8)))
+        idx.search(np.ones(8), k=3)
+        assert _build.LAUNCHES["flat_topk"] == 0, _build.LAUNCHES
+        assert not _build._LIBS
+    """, env=env)
+    assert res.returncode == 0, res.stderr
+    assert not marker.exists()
+
+
+def test_kernel_launcher_refuses_cpu_tensors():
+    q, c = torch.zeros(2, 8), torch.zeros(5, 8)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flat_topk_cuda(q, c, 3)
+    with pytest.raises(ValueError, match=f"k <= {MAX_K}"):
+        flat_topk_cuda(q, c, MAX_K + 1)
+    # the kernel never copies the corpus to make it f32 or contiguous
+    with pytest.raises(ValueError, match="contiguous float32 corpus"):
+        flat_topk_cuda(q, c.double(), 3)
+    with pytest.raises(ValueError, match="strided"):
+        flat_topk_cuda(q, torch.zeros(8, 5).T, 3)
+    assert _build.LAUNCHES["flat_topk"] == 0

@@ -1,0 +1,85 @@
+"""muninn_tpu_torch.ops.topk against muninn_tpu.ops.topk on the CPU: the same
+seeded numpy inputs through both packages. Top-k and merges only move
+values, so results must be equal, not close."""
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from muninn_tpu.ops import topk as jt
+from muninn_tpu_torch.ops import topk as tt
+
+
+def _both_masked(d, k, mask=None, ids=None):
+    want = jt.masked_topk(
+        jnp.asarray(d), k,
+        mask=None if mask is None else jnp.asarray(mask),
+        ids=None if ids is None else jnp.asarray(ids),
+    )
+    got = tt.masked_topk(
+        torch.from_numpy(d), k,
+        mask=None if mask is None else torch.from_numpy(mask),
+        ids=None if ids is None else torch.from_numpy(ids),
+    )
+    return [np.asarray(w) for w in want], [g.numpy() for g in got]
+
+
+@pytest.mark.parametrize(
+    "b,n,k,masked,with_ids",
+    [(3, 20, 5, False, False), (2, 10, 5, True, False), (1, 4, 8, False, False),
+     (4, 37, 37, True, True), (2, 6, 3, False, True), (5, 50, 64, True, False)],
+)
+def test_masked_topk_matches_jax(b, n, k, masked, with_ids):
+    rng = np.random.default_rng(b * 100 + n)
+    d = rng.standard_normal((b, n)).astype(np.float32)
+    mask = rng.random((b, n)) < 0.6 if masked else None
+    ids = (rng.permutation(1000)[:n] + 10).astype(np.int32)[None, :] if with_ids else None
+    (wd, wi), (gd, gi) = _both_masked(d, k, mask, ids)
+    assert gd.shape == (b, k) and gi.dtype == np.int32
+    np.testing.assert_array_equal(gd, wd)
+    np.testing.assert_array_equal(gi, wi)
+
+
+def _both_merge(da, ia, db, ib):
+    want = jt.merge_topk(*(jnp.asarray(x) for x in (da, ia, db, ib)))
+    got = tt.merge_topk(*(torch.from_numpy(x) for x in (da, ia, db, ib)))
+    return [np.asarray(w) for w in want], [g.numpy() for g in got]
+
+
+def test_merge_topk_dedups_like_jax():
+    da = np.array([[1.0, 3.0, 5.0]], np.float32)
+    ia = np.array([[1, 3, 5]], np.int32)
+    db = np.array([[2.0, 3.0, 9.0]], np.float32)
+    ib = np.array([[2, 3, 9]], np.int32)  # id 3 in both
+    (wd, wi), (gd, gi) = _both_merge(da, ia, db, ib)
+    np.testing.assert_array_equal(gd, wd)
+    np.testing.assert_array_equal(gi, wi)
+    np.testing.assert_array_equal(gi[0], [1, 2, 3])
+
+
+def test_merge_topk_invalid_slots_like_jax():
+    da = np.array([[1.0, np.inf]], np.float32)
+    ia = np.array([[4, -1]], np.int32)
+    db = np.array([[0.5, np.inf]], np.float32)
+    ib = np.array([[7, -1]], np.int32)
+    (wd, wi), (gd, gi) = _both_merge(da, ia, db, ib)
+    np.testing.assert_array_equal(gd, wd)
+    np.testing.assert_array_equal(gi, wi)
+
+
+@pytest.mark.parametrize("seed", range(6))
+def test_merge_topk_random_matches_jax(seed):
+    """Random widths, duplicate ids with distinct distances, and (inf, -1)
+    padding."""
+    rng = np.random.default_rng(seed)
+    b, ka, kb = 3, int(rng.integers(1, 12)), int(rng.integers(1, 12))
+    da = np.sort(rng.standard_normal((b, ka)).astype(np.float32), axis=1)
+    db = np.sort(rng.standard_normal((b, kb)).astype(np.float32), axis=1)
+    ia = rng.integers(-1, 8, (b, ka)).astype(np.int32)
+    ib = rng.integers(-1, 8, (b, kb)).astype(np.int32)
+    da = np.where(ia < 0, np.inf, da).astype(np.float32)
+    db = np.where(ib < 0, np.inf, db).astype(np.float32)
+    (wd, wi), (gd, gi) = _both_merge(da, ia, db, ib)
+    np.testing.assert_array_equal(gd, wd)
+    np.testing.assert_array_equal(gi, wi)
