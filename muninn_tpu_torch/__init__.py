@@ -2,10 +2,17 @@
 H100.
 
 The port goes slice by slice beside the JAX package, which stays the
-reference. This slice carries exact flat KNN: ``FlatIndex`` insert,
-delete and search at ``precision="highest"``, with search through a
-hand-written CUDA kernel (``csrc/flat_topk.cu``) on a CUDA device and its
-plain PyTorch version on the CPU. The package imports ``torch`` and numpy,
+reference. So far it carries:
+
+- flat KNN: ``FlatIndex`` insert, delete and search at
+  ``precision="highest"`` (exact) and ``"default"``/``"bfloat16"`` (bf16
+  operands), through the hand-written CUDA kernel ``csrc/flat_topk.cu``;
+- HNSW: ``HnswIndex`` bulk build and search (exact routing, bf16 beam over
+  packed neighbour blocks, exact rescore), through ``csrc/flat_topk.cu``
+  and ``csrc/beam_dots.cu``.
+
+On a CUDA device every kernel wrapper launches its kernel; on the CPU it
+runs its plain PyTorch version. The package imports ``torch`` and numpy,
 never ``jax`` and never ``muninn_tpu``.
 """
 
@@ -13,5 +20,6 @@ __version__ = "0.5.0"
 
 from muninn_tpu_torch.ops.distance import Metric, parse_metric  # noqa: F401
 from muninn_tpu_torch.index.flat import FlatIndex  # noqa: F401
+from muninn_tpu_torch.index.hnsw import HnswIndex  # noqa: F401
 
-__all__ = ["Metric", "parse_metric", "FlatIndex", "__version__"]
+__all__ = ["Metric", "parse_metric", "FlatIndex", "HnswIndex", "__version__"]

@@ -1,0 +1,186 @@
+// Gather + dots for the HNSW beam: for each (query, pick) read one
+// contiguous [R0, D] block of the packed neighbour table and emit the
+// query's dot with each row and the row's squared norm. The gathered blocks
+// never reach device memory as a [B, E*R0, D] intermediate.
+//
+// Replaces: muninn_tpu/ops/pallas_beam.py `_beam_dots_kernel`
+// (pallas_beam.py:46-114), launched through `gather_block_dots` (:117-211,
+// pallas_call at :161).
+//
+// Contract, as the TPU kernel's:
+//   dots[b, j] = <q[b], packed[idx[b, j / R0]][j % R0]>
+//   cn2[b, j]  = that row's squared norm, summed in f32 from stored values
+//   a dead pick (idx < 0) issues no load and writes exactly 0 to both.
+// A pick at or above `cap` is a caller's fault: it reads nothing and
+// writes NaN, so the fault shows in the results instead of reading past
+// the table.
+//
+// What bounds it on an H100: device-memory bytes. Each call reads
+// B*E*R0*D*itemsize of packed blocks (8,192 x 8 x 32 x 384 x 2 B = 1.6 GB
+// per beam iteration at the HNSW bench shape, about 0.5 ms at 3.35 TB/s)
+// and does 4 flops per element, far below the ridge. What the design does
+// about it:
+//   - One block per query, 8 warps. The query row is read once into shared
+//     memory as f32; each warp walks rows j = warp, warp + 8, ... of the
+//     query's E*R0 rows, so E blocks' worth of rows share one query load.
+//   - One warp per row: lanes read the row with 16-byte loads, neighbouring
+//     lanes on neighbouring addresses (a 768-byte bf16 row at D=384 is 48
+//     loads, fully coalesced), when every row starts 16-byte aligned (base
+//     aligned and D*itemsize a multiple of 16). Otherwise lanes read single
+//     elements, still coalesced; no shape is refused or padded.
+//   - f32 accumulation with fmaf, one warp-shuffle reduction per row.
+//   - A dead pick costs one id read: the TPU kernel's per-pick skip.
+// There is no id budget or chunking as on the TPU (pallas_beam.py:187-207):
+// each block reads its own ids. Overlapping the loads of the next rows with
+// the reduction of this one (cp.async or TMA pipelining) is later work.
+//
+// Interface: plain C functions, loaded with ctypes. The launcher runs on the
+// caller's stream, allocates nothing, does not synchronise, and returns
+// cudaGetLastError().
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math_constants.h>
+#include <stdint.h>
+
+namespace {
+
+constexpr int kThreads = 256;
+constexpr int kWarps = kThreads / 32;
+constexpr size_t kMaxSmem = 232448;  // an H100 block's shared memory
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+// Four packed words as floats: 4 f32, or 8 bf16 (little-endian: the low
+// half of each word is the lower element).
+__device__ __forceinline__ void unpack(const uint4& w, float* out,
+                                       const float*) {
+  out[0] = __uint_as_float(w.x); out[1] = __uint_as_float(w.y);
+  out[2] = __uint_as_float(w.z); out[3] = __uint_as_float(w.w);
+}
+__device__ __forceinline__ void unpack(const uint4& w, float* out,
+                                       const __nv_bfloat16*) {
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    out[2 * i] = __uint_as_float(u[i] << 16);
+    out[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
+  }
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads)
+beam_dots_kernel(const float* __restrict__ q,     // [B, D]
+                 const int* __restrict__ idx,     // [B, E]
+                 const T* __restrict__ packed,    // [cap, R0, D]
+                 float* __restrict__ dots,        // [B, E*R0]
+                 float* __restrict__ cn2,         // [B, E*R0]
+                 int E, int R0, int D, int cap, int vec) {
+  extern __shared__ __align__(16) float qs[];     // [D]
+  const int b = blockIdx.x;
+  for (int f = threadIdx.x; f < D; f += kThreads) qs[f] = q[(size_t)b * D + f];
+  __syncthreads();
+
+  constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte load
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  const int rows = E * R0;
+  for (int j = warp; j < rows; j += kWarps) {
+    const int pick = idx[(size_t)b * E + j / R0];  // uniform across the warp
+    float dot = 0.f, sq = 0.f;
+    if (pick >= cap) {
+      dot = sq = CUDART_NAN_F;
+    } else if (pick >= 0) {
+      const T* row = packed + ((size_t)pick * R0 + j % R0) * D;
+      if (vec) {
+        const uint4* rv = reinterpret_cast<const uint4*>(row);
+        const int nvec = D / kVec;
+#pragma unroll 4
+        for (int v = lane; v < nvec; v += 32) {
+          float x[kVec];
+          unpack(__ldg(rv + v), x, row);
+          const float4* qv = reinterpret_cast<const float4*>(qs + v * kVec);
+#pragma unroll
+          for (int h = 0; h < kVec / 4; ++h) {
+            const float4 qq = qv[h];
+            dot = fmaf(x[4 * h], qq.x, dot);
+            dot = fmaf(x[4 * h + 1], qq.y, dot);
+            dot = fmaf(x[4 * h + 2], qq.z, dot);
+            dot = fmaf(x[4 * h + 3], qq.w, dot);
+#pragma unroll
+            for (int t = 0; t < 4; ++t) sq = fmaf(x[4 * h + t], x[4 * h + t], sq);
+          }
+        }
+      } else {
+        for (int f = lane; f < D; f += 32) {
+          const float x = to_f32(row[f]);
+          dot = fmaf(x, qs[f], dot);
+          sq = fmaf(x, x, sq);
+        }
+      }
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1) {
+        dot += __shfl_xor_sync(0xffffffffu, dot, off);
+        sq += __shfl_xor_sync(0xffffffffu, sq, off);
+      }
+    }
+    if (lane == 0) {
+      dots[(size_t)b * rows + j] = dot;
+      cn2[(size_t)b * rows + j] = sq;
+    }
+  }
+}
+
+template <typename T>
+cudaError_t launch(const float* q, const int* idx, const void* packed,
+                   float* dots, float* cn2, int B, int E, int R0, int D,
+                   int cap, cudaStream_t stream) {
+  const T* p = static_cast<const T*>(packed);
+  const int vec = (reinterpret_cast<uintptr_t>(p) % 16 == 0) &&
+                  ((size_t)D * sizeof(T)) % 16 == 0;
+  const size_t smem = (size_t)D * sizeof(float);
+  if (smem > kMaxSmem) return cudaErrorInvalidValue;
+  if (smem > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        beam_dots_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+        (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  beam_dots_kernel<T><<<B, kThreads, smem, stream>>>(q, idx, p, dots, cn2, E,
+                                                     R0, D, cap, vec);
+  return cudaGetLastError();
+}
+
+}  // namespace
+
+extern "C" {
+
+const char* beam_dots_error_string(int code) {
+  return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// q [B, D] f32, idx [B, E] int32, packed [cap, R0, D] (dtype 0: f32,
+// 1: bf16), dots/cn2 [B, E*R0] f32; all contiguous, on card `device`.
+int beam_dots(const void* q, const void* idx, const void* packed, void* dots,
+              void* cn2, int B, int E, int R0, int D, int cap, int dtype,
+              int device, void* stream) {
+  if (B < 1 || E < 1 || R0 < 1 || D < 1 || cap < 0 || dtype < 0 ||
+      dtype > 1 || (long long)E * R0 > 0x7fffffff)
+    return static_cast<int>(cudaErrorInvalidValue);
+  // this library links its own CUDA runtime, whose current card is its own
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const float* qf = static_cast<const float*>(q);
+  const int* ix = static_cast<const int*>(idx);
+  float* od = static_cast<float*>(dots);
+  float* oc = static_cast<float*>(cn2);
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  err = dtype ? launch<__nv_bfloat16>(qf, ix, packed, od, oc, B, E, R0, D,
+                                      cap, st)
+              : launch<float>(qf, ix, packed, od, oc, B, E, R0, D, cap, st);
+  return static_cast<int>(err);
+}
+
+}  // extern "C"

@@ -3,7 +3,22 @@
 // memory.
 //
 // Replaces: muninn_tpu/ops/pallas_flat.py `_flat_topk_kernel`, float branch
-// (pallas_flat.py:49-179, launched at :344), at precision="highest".
+// (pallas_flat.py:49-179, launched at :344), at precision="highest" and at
+// "default"/"bfloat16".
+//
+// Operand modes (template parameter kBf16):
+//   highest          the f32 operands as they are: exact f32 ranking.
+//   default/bfloat16 the unit query and the raw corpus row are rounded to
+//                    bf16 (round to nearest even) as they are staged into
+//                    shared memory, then multiplied and summed in f32. On
+//                    the TPU "default" is one bf16 MXU pass over f32
+//                    inputs (pallas_flat.py:317-320) and "bfloat16" casts
+//                    the inputs to bf16 before the same pass (:299-301), so
+//                    both rank by bf16-rounded operands summed in f32. A
+//                    product of two bf16 values is exact in f32, so this
+//                    mode and its plain version differ only in summation
+//                    order. The epilogue (qn, the penalty row, 1/|c|) stays
+//                    f32 from the unrounded rows.
 //
 // Distances (smaller = better), with the same penalty row as the TPU kernel
 // (pallas_flat.py:96-106, :289-296): cp[n] holds the l2 corpus sqnorm (0 for
@@ -17,7 +32,8 @@
 //
 // What bounds it on an H100: at large B the f32 FMAs on CUDA cores (about
 // 67 TFLOP/s peak; `highest` promises exact f32 ranking, so no TF32 and no
-// tensor cores); at small B the corpus read from HBM (1M x 768 f32 is 3.1 GB,
+// tensor cores; the bf16 mode runs the same FMAs, and bf16 tensor cores are
+// later work); at small B the corpus read from HBM (1M x 768 f32 is 3.1 GB,
 // about 0.94 ms at 3.35 TB/s). What the design does about it:
 //   - One block holds a tile of TQ queries and walks its share of the corpus
 //     itself, in tiles of kTileRows rows staged through shared memory
@@ -43,6 +59,7 @@
 // caller's stream, allocates nothing, does not synchronise, and returns
 // cudaGetLastError().
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math_constants.h>
 
@@ -53,6 +70,13 @@ constexpr int kTileRows = 64;   // corpus rows per shared-memory tile
 constexpr int kDepth = 32;      // features staged per step
 constexpr int kMaxK = 1024;     // largest k the kernel serves
 constexpr int kMaxSplits = 64;  // most corpus splits for one query tile
+
+// An operand as the kernel multiplies it: as stored, or rounded to bf16.
+template <bool kBf16>
+__device__ __forceinline__ float operand(float v) {
+  if constexpr (kBf16) return __bfloat162float(__float2bfloat16_rn(v));
+  return v;
+}
 
 // (distance, id) order: ties go to the smaller id, as in lax.top_k.
 __device__ __forceinline__ bool before(float da, int ia, float db, int ib) {
@@ -120,7 +144,7 @@ size_t smem_bytes(int w) {
                  2ull * TQ * w + 2 * TQ);
 }
 
-template <int TQ, int RQ, int RC>
+template <int TQ, int RQ, int RC, bool kBf16>
 __global__ void __launch_bounds__(kThreads)
 flat_topk_kernel(const float* __restrict__ q,   // [B, D]
                  const float* __restrict__ c,   // [N, D]
@@ -175,14 +199,14 @@ flat_topk_kernel(const float* __restrict__ q,   // [B, D]
       for (int e = tid; e < TQ * kDepth; e += kThreads) {
         const int r = e / kDepth, f = e % kDepth;
         const int gq = q0 + r, gf = d0 + f;
-        qs[f * QS + r] =
-            (gq < B && gf < D) ? q[(size_t)gq * D + gf] : 0.f;
+        qs[f * QS + r] = operand<kBf16>(
+            (gq < B && gf < D) ? q[(size_t)gq * D + gf] : 0.f);
       }
       for (int e = tid; e < kTileRows * kDepth; e += kThreads) {
         const int r = e / kDepth, f = e % kDepth;
         const int gr = t0 + r, gf = d0 + f;
-        ct[f * CS + r] =
-            (gr < row_hi && gf < D) ? c[(size_t)gr * D + gf] : 0.f;
+        ct[f * CS + r] = operand<kBf16>(
+            (gr < row_hi && gf < D) ? c[(size_t)gr * D + gf] : 0.f);
       }
       __syncthreads();
 #pragma unroll 8
@@ -274,18 +298,18 @@ int query_tile(int k) {
 
 // Blocks of this instance that fit on one SM at buffer width w. Also sets
 // the instance's dynamic shared memory limit, which a launch needs first.
-template <int TQ, int RQ, int RC>
+template <int TQ, int RQ, int RC, bool kBf16>
 cudaError_t blocks_per_sm(int w, int* out) {
   const size_t smem = smem_bytes<TQ>(w);
   cudaError_t err = cudaFuncSetAttribute(
-      flat_topk_kernel<TQ, RQ, RC>,
+      flat_topk_kernel<TQ, RQ, RC, kBf16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      out, flat_topk_kernel<TQ, RQ, RC>, kThreads, smem);
+      out, flat_topk_kernel<TQ, RQ, RC, kBf16>, kThreads, smem);
 }
 
-template <int TQ, int RQ, int RC>
+template <int TQ, int RQ, int RC, bool kBf16>
 cudaError_t launch(const float* q, const float* c, const float* qn,
                    const float* cp, const float* cs, float* out_d, int* out_i,
                    int B, int N, int D, int k, int mode, int splits,
@@ -293,16 +317,48 @@ cudaError_t launch(const float* q, const float* c, const float* qn,
   const int w = buffer_width(k);
   const size_t smem = smem_bytes<TQ>(w);
   cudaError_t err = cudaFuncSetAttribute(
-      flat_topk_kernel<TQ, RQ, RC>,
+      flat_topk_kernel<TQ, RQ, RC, kBf16>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return err;
   // rows per split: a whole number of tiles; trailing splits may be empty
   const int per = (N + splits - 1) / splits;
   const int rows = (per + kTileRows - 1) / kTileRows * kTileRows;
   const dim3 grid((B + TQ - 1) / TQ, splits);
-  flat_topk_kernel<TQ, RQ, RC><<<grid, kThreads, smem, stream>>>(
+  flat_topk_kernel<TQ, RQ, RC, kBf16><<<grid, kThreads, smem, stream>>>(
       q, c, qn, cp, cs, out_d, out_i, B, N, D, k, mode, rows, w);
   return cudaGetLastError();
+}
+
+template <bool kBf16>
+cudaError_t occupancy(int k, int* per_sm) {
+  const int w = buffer_width(k);
+  switch (query_tile(k)) {
+    case 64: return blocks_per_sm<64, 4, 4, kBf16>(w, per_sm);
+    case 32: return blocks_per_sm<32, 2, 4, kBf16>(w, per_sm);
+    case 16: return blocks_per_sm<16, 1, 4, kBf16>(w, per_sm);
+    default: return blocks_per_sm<8, 1, 2, kBf16>(w, per_sm);
+  }
+}
+
+template <bool kBf16>
+cudaError_t launch_mode(const float* q, const float* c, const float* qn,
+                        const float* cp, const float* cs, float* out_d,
+                        int* out_i, int B, int N, int D, int k, int mode,
+                        int splits, cudaStream_t st) {
+  switch (query_tile(k)) {
+    case 64:
+      return launch<64, 4, 4, kBf16>(q, c, qn, cp, cs, out_d, out_i, B, N, D,
+                                     k, mode, splits, st);
+    case 32:
+      return launch<32, 2, 4, kBf16>(q, c, qn, cp, cs, out_d, out_i, B, N, D,
+                                     k, mode, splits, st);
+    case 16:
+      return launch<16, 1, 4, kBf16>(q, c, qn, cp, cs, out_d, out_i, B, N, D,
+                                     k, mode, splits, st);
+    default:
+      return launch<8, 1, 2, kBf16>(q, c, qn, cp, cs, out_d, out_i, B, N, D,
+                                    k, mode, splits, st);
+  }
 }
 
 }  // namespace
@@ -314,22 +370,16 @@ int flat_topk_max_k() { return kMaxK; }
 // How many corpus splits to give the launcher on card `device`: as many as
 // keep query tiles x splits within one wave of resident blocks, at least
 // 8 tiles of corpus rows per split, at most kMaxSplits, at least 1.
+// `bf16` selects the operand mode, whose instance may hold other registers.
 // Returns -(CUDA error) if the card cannot be queried.
-int flat_topk_splits(int B, int N, int k, int device) {
+int flat_topk_splits(int B, int N, int k, int bf16, int device) {
   if (k < 1 || k > kMaxK || B < 1) return 1;
   cudaError_t err = cudaSetDevice(device);
   int sms = 0, per_sm = 0;
   if (err == cudaSuccess)
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, device);
-  if (err == cudaSuccess) {
-    const int w = buffer_width(k);
-    switch (query_tile(k)) {
-      case 64: err = blocks_per_sm<64, 4, 4>(w, &per_sm); break;
-      case 32: err = blocks_per_sm<32, 2, 4>(w, &per_sm); break;
-      case 16: err = blocks_per_sm<16, 1, 4>(w, &per_sm); break;
-      default: err = blocks_per_sm<8, 1, 2>(w, &per_sm); break;
-    }
-  }
+  if (err == cudaSuccess)
+    err = bf16 ? occupancy<true>(k, &per_sm) : occupancy<false>(k, &per_sm);
   if (err != cudaSuccess) return -static_cast<int>(err);
   const int tq = query_tile(k);
   const int qtiles = (B + tq - 1) / tq;
@@ -345,13 +395,14 @@ const char* flat_topk_error_string(int code) {
 }
 
 // q [B, D], c [N, D], qn [B] (read for l2), cp [N], cs [N] (read for
-// cosine), out_d/out_i [splits, B, k]; all contiguous, on card `device`.
+// cosine), out_d/out_i [splits, B, k]; all contiguous f32/int32, on card
+// `device`. bf16 = 0: exact f32 operands; 1: bf16-rounded operands.
 int flat_topk_f32(const void* q, const void* c, const void* qn,
                   const void* cp, const void* cs, void* out_d, void* out_i,
-                  int B, int N, int D, int k, int mode, int splits,
+                  int B, int N, int D, int k, int mode, int bf16, int splits,
                   int device, void* stream) {
   if (B < 1 || N < 0 || D < 1 || k < 1 || k > kMaxK || mode < 0 ||
-      mode > 2 || splits < 1 || splits > kMaxSplits)
+      mode > 2 || bf16 < 0 || bf16 > 1 || splits < 1 || splits > kMaxSplits)
     return static_cast<int>(cudaErrorInvalidValue);
   // this library links its own CUDA runtime, whose current card is its own
   cudaError_t err = cudaSetDevice(device);
@@ -364,24 +415,10 @@ int flat_topk_f32(const void* q, const void* c, const void* qn,
   float* od = static_cast<float*>(out_d);
   int* oi = static_cast<int*>(out_i);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (query_tile(k)) {
-    case 64:
-      err = launch<64, 4, 4>(qf, cf, qnf, cpf, csf, od, oi, B, N, D, k, mode,
-                             splits, st);
-      break;
-    case 32:
-      err = launch<32, 2, 4>(qf, cf, qnf, cpf, csf, od, oi, B, N, D, k, mode,
-                             splits, st);
-      break;
-    case 16:
-      err = launch<16, 1, 4>(qf, cf, qnf, cpf, csf, od, oi, B, N, D, k, mode,
-                             splits, st);
-      break;
-    default:
-      err = launch<8, 1, 2>(qf, cf, qnf, cpf, csf, od, oi, B, N, D, k, mode,
-                            splits, st);
-      break;
-  }
+  err = bf16 ? launch_mode<true>(qf, cf, qnf, cpf, csf, od, oi, B, N, D, k,
+                                 mode, splits, st)
+             : launch_mode<false>(qf, cf, qnf, cpf, csf, od, oi, B, N, D, k,
+                                  mode, splits, st);
   return static_cast<int>(err);
 }
 

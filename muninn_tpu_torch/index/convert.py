@@ -1,11 +1,23 @@
-"""Carry a flat index's state between ``muninn_tpu`` and this package.
+"""Carry an index's state between ``muninn_tpu`` and this package.
 
 Both directions take and give only numpy, so neither package imports the
-other. ``state`` holds ``dim``, ``metric`` (the metric's name),
+other.
+
+Flat: ``state`` holds ``dim``, ``metric`` (the metric's name),
 ``vectors [hw, d]`` f32, ``valid [hw]`` bool and ``id_of [hw]`` int64 with
 -1 on free slots, where ``hw`` is the store's high watermark. From a
 ``muninn_tpu`` ``FlatIndex`` these are ``np.asarray(store.vectors[:hw])``,
 ``np.asarray(store.valid[:hw])`` and ``store._id_of[:hw]``.
+
+HNSW: exactly the fields ``muninn_tpu.io.checkpoint.save_hnsw`` writes, so
+a JAX checkpoint's ``arrays.npz`` and ``manifest.json`` together are a
+state. Arrays, over the store's whole capacity ``cap``:
+``vectors [cap, d]`` f32, ``valid [cap]`` bool, ``ids [cap]`` int64 (-1 on
+free slots), ``levels [cap]`` int32 (-1 on free slots), ``neighbors0
+[cap, 2m]`` int32, ``dists0 [cap, 2m]`` f32, ``hi_index [cap]`` int32,
+``hi_neighbors [cap_hi, 8, m]`` int32. Scalars: ``dim``, ``metric``, ``m``,
+``ef_construction``, ``entry_point``, ``max_level``, ``hi_count``,
+``high_watermark``, ``count``.
 """
 
 from __future__ import annotations
@@ -14,6 +26,15 @@ import numpy as np
 import torch
 
 from muninn_tpu_torch.index.flat import FlatIndex
+from muninn_tpu_torch.index.hnsw import HnswIndex
+
+_HNSW_ARRAYS = {
+    "vectors": np.float32, "valid": bool, "ids": np.int64,
+    "levels": np.int32, "neighbors0": np.int32, "dists0": np.float32,
+    "hi_index": np.int32, "hi_neighbors": np.int32,
+}
+_HNSW_SCALARS = ("dim", "m", "ef_construction", "entry_point", "max_level",
+                 "hi_count", "high_watermark", "count")
 
 
 def flat_index_from_numpy(state: dict, device: str | torch.device = "cpu") -> FlatIndex:
@@ -39,4 +60,85 @@ def flat_index_to_numpy(index: FlatIndex) -> dict:
         "vectors": index.store.vectors[:hw].cpu().numpy().copy(),
         "valid": index.store.valid[:hw].cpu().numpy().copy(),
         "id_of": index.store._id_of[:hw].copy(),
+    }
+
+
+def hnsw_index_from_numpy(state: dict,
+                          device: str | torch.device = "cpu") -> HnswIndex:
+    """Build an ``HnswIndex`` on ``device`` from ``state`` (see the module
+    docstring). Its capacity is that of ``state``; the slot map is rebuilt
+    from ``ids``. The packed neighbour table is built as after a bulk
+    build: at the first search on a CUDA device."""
+    a = {k: np.asarray(state[k], t) for k, t in _HNSW_ARRAYS.items()}
+    sc = {k: int(state[k]) for k in _HNSW_SCALARS}
+    cap, dim, m = a["vectors"].shape[0], sc["dim"], sc["m"]
+    want = {"vectors": (cap, dim), "valid": (cap,), "ids": (cap,),
+            "levels": (cap,), "neighbors0": (cap, 2 * m),
+            "dists0": (cap, 2 * m), "hi_index": (cap,)}
+    for k, shape in want.items():
+        if a[k].shape != shape:
+            raise ValueError(f"{k} has shape {a[k].shape}, want {shape}")
+    hn = a["hi_neighbors"]
+    if hn.ndim != 3 or hn.shape[2] != m:
+        raise ValueError(f"hi_neighbors has shape {hn.shape}, want (*, *, {m})")
+    live = np.flatnonzero(a["ids"] >= 0)
+    if not np.array_equal(a["valid"], a["ids"] >= 0):
+        raise ValueError("valid must be True exactly on the slots with an id")
+    if len(live) != sc["count"] or len(np.unique(a["ids"][live])) != len(live):
+        raise ValueError("ids must hold count distinct ids")
+    if len(live) and live[-1] >= sc["high_watermark"]:
+        raise ValueError("a live slot lies at or above high_watermark")
+    # an out-of-range gather is a device-side assert on CUDA: refuse here
+    if not ((a["neighbors0"] >= -1) & (a["neighbors0"] < cap)).all():
+        raise ValueError("neighbors0 holds a slot outside the store")
+    if not ((a["hi_index"] >= -1) & (a["hi_index"] < hn.shape[0])).all():
+        raise ValueError("hi_index points outside hi_neighbors")
+    if not ((hn >= -1) & (hn < cap)).all():
+        raise ValueError("hi_neighbors holds a slot outside the store")
+
+    index = HnswIndex(dim, str(state["metric"]), m=m,
+                      ef_construction=sc["ef_construction"], capacity=cap,
+                      device=device)
+    dev = index.device
+    st = index.store
+    st.vectors = torch.tensor(a["vectors"], device=dev)
+    st.valid = torch.tensor(a["valid"], device=dev)
+    st._id_of = a["ids"].copy()
+    st._slot_of = dict(zip(a["ids"][live].tolist(), live.tolist()))
+    st._count = sc["count"]
+    st._high = sc["high_watermark"]
+    index.levels = a["levels"].copy()
+    index.neighbors0 = torch.tensor(a["neighbors0"], device=dev)
+    index.dists0 = torch.tensor(a["dists0"], device=dev)
+    index.hi_index = torch.tensor(a["hi_index"], device=dev)
+    index._hi_index_np = a["hi_index"].copy()
+    index.hi_neighbors = torch.tensor(hn, device=dev)
+    index._hi_count = sc["hi_count"]
+    index.entry_point = sc["entry_point"]
+    index.max_level = sc["max_level"]
+    return index
+
+
+def hnsw_index_to_numpy(index: HnswIndex) -> dict:
+    """The state of ``index`` as numpy arrays and Python scalars (see the
+    module docstring)."""
+    st = index.store
+    return {
+        "vectors": st.vectors.cpu().numpy().copy(),
+        "valid": st.valid.cpu().numpy().copy(),
+        "ids": st._id_of.copy(),
+        "levels": index.levels.copy(),
+        "neighbors0": index.neighbors0.cpu().numpy().copy(),
+        "dists0": index.dists0.cpu().numpy().copy(),
+        "hi_index": index.hi_index.cpu().numpy().copy(),
+        "hi_neighbors": index.hi_neighbors.cpu().numpy().copy(),
+        "dim": index.dim,
+        "metric": index.metric.value,
+        "m": index.m,
+        "ef_construction": index.ef_construction,
+        "entry_point": index.entry_point,
+        "max_level": index.max_level,
+        "hi_count": index._hi_count,
+        "high_watermark": st.high_watermark,
+        "count": len(st),
     }

@@ -1,5 +1,6 @@
-"""Exact (brute-force) KNN index, the PyTorch port of
-``muninn_tpu/index/flat.py`` ``FlatIndex`` at ``precision="highest"``.
+"""Brute-force KNN index, the PyTorch port of ``muninn_tpu/index/flat.py``
+``FlatIndex`` at ``precision="highest"`` (exact) and ``"default"`` /
+``"bfloat16"`` (bf16-rounded operands, f32 sums).
 
 Search runs ``ops.flat_topk.flat_topk`` over the store's live prefix: on a
 CUDA device that is the hand-written kernel, on the CPU its plain version
@@ -17,7 +18,8 @@ from muninn_tpu_torch.ops.distance import Metric, parse_metric
 from muninn_tpu_torch.ops.flat_topk import flat_topk
 
 # precisions of muninn_tpu's FlatIndex that this package has not ported yet
-_NOT_PORTED = ("default", "bfloat16", "int8_rescored", "proj_rescored")
+_NOT_PORTED = ("int8_rescored", "proj_rescored")
+_PORTED = ("highest", "default", "bfloat16")
 
 
 class FlatIndex:
@@ -36,12 +38,12 @@ class FlatIndex:
         self.metric = parse_metric(metric)
         if precision in _NOT_PORTED:
             raise NotImplementedError(
-                f"precision={precision!r} is not ported yet: only 'highest'"
-                " (exact f32) is (see ROADMAP.md, queue 1, item 3)"
+                f"precision={precision!r} is not ported yet: only"
+                f" {', '.join(_PORTED)} are (see ROADMAP.md, queue 1)"
             )
-        if precision != "highest":
+        if precision not in _PORTED:
             raise ValueError(
-                f"precision must be 'highest', got {precision!r}"
+                f"precision must be one of {_PORTED}, got {precision!r}"
             )
         self.precision = precision
         self.device = torch.device(device)

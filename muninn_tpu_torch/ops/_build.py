@@ -5,7 +5,8 @@ call to ``library(name)`` compiles it with ``nvcc`` for ``sm_90a`` into a
 shared library under ``build/kernels/`` at the root of the checkout, named
 by a hash of the source, the flags and ``nvcc --version``, and loads it
 with ``ctypes``; a later process with the same toolkit finds the library
-there and skips the build. Importing this
+there and skips the build. ``load_all(names)`` starts one ``nvcc`` for
+each missing library at once and waits for all of them. Importing this
 module compiles and loads nothing, so it imports on machines without CUDA.
 
 ``LAUNCHES[name]`` counts the kernel launches a wrapper has made: the
@@ -23,7 +24,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-LAUNCHES: dict[str, int] = {"flat_topk": 0}
+LAUNCHES: dict[str, int] = {"flat_topk": 0, "beam_dots": 0}
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
@@ -62,41 +63,64 @@ def nvcc_path() -> str:
     )
 
 
-def build(name: str) -> Path:
-    """Compile ``csrc/<name>.cu`` unless a library of the same source,
-    flags and compiler version is already built; return the library's
-    path."""
-    src = CSRC_DIR / f"{name}.cu"
+def build(names: list[str]) -> dict[str, Path]:
+    """Compile each ``csrc/<name>.cu`` unless a library of the same source,
+    flags and compiler version is already built, all missing ones at once
+    (one ``nvcc`` each); return each library's path. Raises after every
+    build has ended if any failed."""
     nvcc = nvcc_path()
     version = subprocess.run(
         [nvcc, "--version"], capture_output=True, text=True, check=True,
         timeout=60,
     ).stdout
-    digest = hashlib.sha256(
-        src.read_bytes() + "\0".join((*NVCC_FLAGS, version)).encode()
-    ).hexdigest()[:16]
-    out = BUILD_DIR / f"{name}-{digest}.so"
-    if out.is_file():
-        return out
-    BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-    cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)]
-    res = subprocess.run(cmd, capture_output=True, text=True)
-    BUILD_LOGS[name] = res.stdout + res.stderr
-    if res.returncode != 0:
-        tmp.unlink(missing_ok=True)
-        raise RuntimeError(
-            f"nvcc failed to build {src.name} (exit {res.returncode}):\n"
-            f"{' '.join(cmd)}\n{res.stderr}"
-        )
-    os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
-    return out
+    paths, todo = {}, []
+    for name in names:
+        src = CSRC_DIR / f"{name}.cu"
+        digest = hashlib.sha256(
+            src.read_bytes() + "\0".join((*NVCC_FLAGS, version)).encode()
+        ).hexdigest()[:16]
+        out = paths[name] = BUILD_DIR / f"{name}-{digest}.so"
+        if not out.is_file():
+            tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
+            todo.append((name, [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                         tmp, out))
+    if todo:
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    failed, running = [], []
+    try:
+        for name, cmd, tmp, out in todo:
+            proc = subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                    stderr=subprocess.PIPE, text=True)
+            running.append((proc, name, cmd, tmp, out))
+        for proc, name, cmd, tmp, out in running:
+            stdout, stderr = proc.communicate()
+            BUILD_LOGS[name] = stdout + stderr
+            if proc.returncode != 0:
+                tmp.unlink(missing_ok=True)
+                failed.append(f"nvcc failed to build {name}.cu (exit"
+                              f" {proc.returncode}):\n{' '.join(cmd)}\n{stderr}")
+            else:
+                os.replace(tmp, out)  # atomic: a concurrent build sees all or nothing
+    finally:  # on an error, stop every compiler still running
+        for proc, *_ in running:
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
+    if failed:
+        raise RuntimeError("\n".join(failed))
+    return paths
+
+
+def load_all(names: list[str]) -> None:
+    """Build the missing libraries of ``names`` in parallel and load them."""
+    with _LOCK:
+        missing = [n for n in names if n not in _LIBS]
+        if missing:
+            for name, path in build(missing).items():
+                _LIBS[name] = ctypes.CDLL(str(path))
 
 
 def library(name: str) -> ctypes.CDLL:
     """The loaded library of ``csrc/<name>.cu``, built on first use."""
-    with _LOCK:
-        lib = _LIBS.get(name)
-        if lib is None:
-            lib = _LIBS[name] = ctypes.CDLL(str(build(name)))
-        return lib
+    load_all([name])
+    return _LIBS[name]

@@ -12,6 +12,7 @@ for each one (``exact_f32_dots``).
 
 from __future__ import annotations
 
+import contextlib
 import enum
 
 import torch
@@ -44,19 +45,33 @@ def squared_norms(x: torch.Tensor) -> torch.Tensor:
     return (xf * xf).sum(dim=-1)
 
 
-def exact_f32_dots(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
-    """``q @ c.T`` in full float32. On the card this sets
-    ``torch.backends.cuda.matmul.allow_tf32 = False`` for the product (so
-    that no caller's setting can turn the reference into a TF32 product)
-    and restores the caller's setting afterwards."""
-    if not q.is_cuda:
-        return q @ c.T
+@contextlib.contextmanager
+def _no_tf32(on_cuda: bool):
+    """Sets ``torch.backends.cuda.matmul.allow_tf32 = False`` for the block
+    when ``on_cuda`` (so that no caller's setting can turn a reference
+    product into a TF32 one) and restores the caller's setting after."""
+    if not on_cuda:
+        yield
+        return
     saved = torch.backends.cuda.matmul.allow_tf32
     torch.backends.cuda.matmul.allow_tf32 = False
     try:
-        return q @ c.T
+        yield
     finally:
         torch.backends.cuda.matmul.allow_tf32 = saved
+
+
+def exact_f32_dots(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``q @ c.T`` in full float32, TF32 off on the card."""
+    with _no_tf32(q.is_cuda):
+        return q @ c.T
+
+
+def batched_f32_dots(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
+    """``[B, d]`` x ``[B, C, d]`` -> ``[B, C]`` dots in full float32, TF32
+    off on the card."""
+    with _no_tf32(q.is_cuda):
+        return torch.bmm(c, q[:, :, None])[..., 0]
 
 
 def pairwise_distances(
@@ -80,6 +95,34 @@ def pairwise_distances(
     qn = torch.sqrt(squared_norms(q))[:, None]
     cn = torch.sqrt(squared_norms(c))[None, :]
     denom = qn * cn
+    sim = torch.where(
+        denom < _EPS_NORM,
+        torch.zeros_like(dots),
+        dots / torch.clamp(denom, min=_EPS_NORM),
+    )
+    return 1.0 - sim
+
+
+def gathered_distances(
+    queries: torch.Tensor,
+    candidate_vectors: torch.Tensor,
+    metric: Metric | str = Metric.L2,
+) -> torch.Tensor:
+    """Per-query candidate distances ``[B, C]`` for queries ``[B, d]``
+    against per-query gathered candidates ``[B, C, d]`` (any float dtype,
+    computed in exact float32), as ``gathered_distances`` in
+    ``muninn_tpu/ops/distance.py``: l2 clamped at 0, cosine with the
+    ``_EPS_NORM`` guard."""
+    metric = parse_metric(metric)
+    q = queries.float()
+    c = candidate_vectors.float()
+    dots = batched_f32_dots(q, c)
+    if metric is Metric.INNER_PRODUCT:
+        return -dots
+    if metric is Metric.L2:
+        qn = squared_norms(q)[:, None]
+        return torch.clamp(qn + squared_norms(c) - 2.0 * dots, min=0.0)
+    denom = torch.sqrt(squared_norms(q))[:, None] * torch.sqrt(squared_norms(c))
     sim = torch.where(
         denom < _EPS_NORM,
         torch.zeros_like(dots),

@@ -1,10 +1,12 @@
-"""Exact smallest-k over a corpus: a hand-written CUDA kernel and its plain
+"""Smallest-k over a corpus: a hand-written CUDA kernel and its plain
 PyTorch version.
 
-Port of ``muninn_tpu/ops/pallas_flat.py`` ``flat_topk`` at
-``precision="highest"``, the exact f32 form. The kernel
-(``csrc/flat_topk.cu``) replaces ``_flat_topk_kernel``'s float branch; the
-plain version ``flat_topk_plain`` mirrors ``_xla_topk``.
+Port of ``muninn_tpu/ops/pallas_flat.py`` ``flat_topk`` in its float forms:
+``precision="highest"`` (exact f32 operands) and ``"default"`` /
+``"bfloat16"`` (operands rounded to bf16, products summed in f32: what one
+bf16 MXU pass computes on the TPU). The kernel (``csrc/flat_topk.cu``)
+replaces ``_flat_topk_kernel``'s float branch; the plain version
+``flat_topk_plain`` mirrors ``_xla_topk``.
 
 ``flat_topk`` picks the path by the tensors' device: CPU tensors go to the
 plain version, CUDA tensors to the kernel. On a CUDA tensor there is no
@@ -33,13 +35,24 @@ _MODE = {Metric.L2: 0, Metric.COSINE: 1, Metric.INNER_PRODUCT: 2}
 _INF = float("inf")
 
 
-def _check_precision(precision: str) -> None:
-    if precision != "highest":
+def bf16_operands(precision: str) -> bool:
+    """Whether ``precision`` ranks by bf16-rounded operands: False for
+    "highest", True for "default" and "bfloat16". On the TPU "default" is
+    one bf16 MXU pass over f32 inputs and "bfloat16" casts the inputs to
+    bf16 before the same pass, so the two give the same numbers."""
+    if precision == "highest":
+        return False
+    if precision in ("default", "bfloat16"):
+        return True
+    if precision == "int8":
         raise NotImplementedError(
-            f"precision={precision!r} is not ported yet: muninn_tpu_torch runs"
-            " only the exact f32 'highest' form (see ROADMAP.md, queue 1,"
-            " item 3, and queue 2, row 2)"
+            "precision='int8' is not ported yet (see ROADMAP.md, queue 1,"
+            " and queue 2, row 2)"
         )
+    raise ValueError(
+        "precision must be 'highest', 'default', 'bfloat16' or 'int8', got"
+        f" {precision!r}"
+    )
 
 
 def _penalty_row(
@@ -64,6 +77,14 @@ def _unit_rows(x: torch.Tensor) -> torch.Tensor:
                            min=_EPS_NORM)
 
 
+def _inv_norms(x: torch.Tensor) -> torch.Tensor:
+    return 1.0 / torch.clamp(torch.linalg.norm(x, dim=1), min=_EPS_NORM)
+
+
+def _bf16_round(x: torch.Tensor) -> torch.Tensor:
+    return x.bfloat16().float()
+
+
 def flat_topk_plain(
     queries: torch.Tensor,
     corpus: torch.Tensor,
@@ -71,28 +92,43 @@ def flat_topk_plain(
     *,
     metric: Metric | str = Metric.L2,
     corpus_valid: torch.Tensor | None = None,
+    precision: str = "highest",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The kernel's arithmetic in plain PyTorch, as ``_xla_topk``
-    (``pallas_flat.py:192-238``) computes it: exact-f32 products, the same
+    (``pallas_flat.py:192-238``) computes it: f32 products, the same
     penalty row, and a top-k merge, here over corpus chunks of ``_CHUNK``
     rows with ``masked_topk`` and ``merge_topk`` as ``FlatIndex``'s
     ``_xla_chunked_topk`` (``index/flat.py``) merges them. Returns
     ``(dists [B, k] f32, ids [B, k] int32)`` sorted ascending, ``(inf, -1)``
-    where fewer than k rows are live."""
+    where fewer than k rows are live.
+
+    ``precision="default"``/``"bfloat16"``: the unit query and the raw
+    corpus row are rounded to bf16 and multiplied in exact f32, cosine
+    scales by 1/|c| of the f32 row, as the kernel does."""
     metric = parse_metric(metric)
+    bf16 = bf16_operands(precision)
     q = queries.float()
     c = corpus.float()
+    cs = None
     if metric is Metric.COSINE:
-        # pre-normalise so the cosine distance is 1 - dot
+        # pre-normalise so the cosine distance is 1 - dot; the bf16 mode
+        # rounds the raw corpus row and folds 1/|c| in after the product
         q = _unit_rows(q)
-        c = _unit_rows(c)
+        if bf16:
+            cs = _inv_norms(c)
+        else:
+            c = _unit_rows(c)
     cp = _penalty_row(c, metric, corpus_valid)
     qn = squared_norms(q)[:, None]
     b, n = q.shape[0], c.shape[0]
     bd = torch.full((b, k), _INF, dtype=torch.float32, device=q.device)
     bi = torch.full((b, k), -1, dtype=torch.int32, device=q.device)
+    qo = _bf16_round(q) if bf16 else q
     for lo in range(0, n, _CHUNK):
-        dots = exact_f32_dots(q, c[lo : lo + _CHUNK])
+        cc = c[lo : lo + _CHUNK]
+        dots = exact_f32_dots(qo, _bf16_round(cc) if bf16 else cc)
+        if cs is not None:
+            dots = dots * cs[None, lo : lo + _CHUNK]
         cpc = cp[None, lo : lo + _CHUNK]
         if metric is Metric.L2:
             tile = (qn - 2.0 * dots) + cpc
@@ -115,9 +151,9 @@ def _library() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.library("flat_topk")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.flat_topk_f32.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
+        lib.flat_topk_f32.argtypes = [ptr] * 7 + [i32] * 8 + [ptr]
         lib.flat_topk_f32.restype = i32
-        lib.flat_topk_splits.argtypes = [i32] * 4
+        lib.flat_topk_splits.argtypes = [i32] * 5
         lib.flat_topk_splits.restype = i32
         lib.flat_topk_max_k.argtypes = []
         lib.flat_topk_max_k.restype = i32
@@ -139,10 +175,12 @@ def flat_topk_cuda(
     *,
     metric: Metric | str = Metric.L2,
     corpus_valid: torch.Tensor | None = None,
+    precision: str = "highest",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the fused distance + top-k kernel. CUDA tensors only; raises
     on anything else, and on a failed build or launch."""
     metric = parse_metric(metric)
+    bf16 = bf16_operands(precision)
     if not 1 <= k <= MAX_K:
         raise ValueError(
             f"k={k}: the flat_topk CUDA kernel serves 1 <= k <= {MAX_K}"
@@ -179,7 +217,7 @@ def flat_topk_cuda(
     q = queries.float()
     if metric is Metric.COSINE:
         q = _unit_rows(q)
-        cs = 1.0 / torch.clamp(torch.linalg.norm(c, dim=1), min=_EPS_NORM)
+        cs = _inv_norms(c)
     else:
         cs = torch.empty(0, dtype=torch.float32, device=dev)
     q = q.contiguous()
@@ -188,7 +226,7 @@ def flat_topk_cuda(
     cs = cs.contiguous()
 
     lib = _library()
-    splits = lib.flat_topk_splits(b, n, k, dev.index)
+    splits = lib.flat_topk_splits(b, n, k, int(bf16), dev.index)
     if splits < 1:
         raise RuntimeError(
             f"flat_topk: querying {dev} failed: CUDA error {-splits}"
@@ -200,7 +238,7 @@ def flat_topk_cuda(
     rc = lib.flat_topk_f32(
         q.data_ptr(), c.data_ptr(), qn.data_ptr(), cp.data_ptr(),
         cs.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
-        b, n, d, k, _MODE[metric], splits, dev.index, stream,
+        b, n, d, k, _MODE[metric], int(bf16), splits, dev.index, stream,
     )
     if rc != 0:
         raise RuntimeError(
@@ -226,21 +264,23 @@ def flat_topk(
     corpus_valid: torch.Tensor | None = None,
     precision: str = "highest",
 ) -> tuple[torch.Tensor, torch.Tensor]:
-    """Exact smallest-k over the corpus. Returns ``(dists [B,k] f32,
+    """Smallest-k over the corpus. Returns ``(dists [B,k] f32,
     ids [B,k] int32)`` sorted ascending; invalid or masked slots are
     ``(inf, -1)``.
 
     ``corpus_valid``: optional bool ``[N]``; False rows never appear in
-    results. ``precision``: only "highest" (exact f32) is ported.
+    results. ``precision``: "highest" (exact f32), "default" or
+    "bfloat16" (bf16-rounded operands, f32 sums); "int8" is not ported.
 
     CPU tensors run ``flat_topk_plain``; CUDA tensors run the kernel, which
     serves ``k <= MAX_K``.
     """
-    _check_precision(precision)
     if queries.device.type == "cpu" and corpus.device.type == "cpu":
         return flat_topk_plain(
-            queries, corpus, k, metric=metric, corpus_valid=corpus_valid
+            queries, corpus, k, metric=metric, corpus_valid=corpus_valid,
+            precision=precision,
         )
     return flat_topk_cuda(
-        queries, corpus, k, metric=metric, corpus_valid=corpus_valid
+        queries, corpus, k, metric=metric, corpus_valid=corpus_valid,
+        precision=precision,
     )

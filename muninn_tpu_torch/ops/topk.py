@@ -84,3 +84,20 @@ def merge_topk(
     d = torch.gather(d, -1, order)
     i = torch.gather(i, -1, order)
     return d[..., :ka], i[..., :ka]
+
+
+def sorted_topk_unique(
+    dists: torch.Tensor, ids: torch.Tensor, k: int
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Sort (dist, id) pairs ascending by distance after id-dedup and keep
+    k. Always width ``k``: fewer candidates than k leave an
+    ``(inf, -1)``-padded tail."""
+    d, i = _dedup_ids(dists, ids)
+    order = torch.sort(d, dim=-1, stable=True).indices[..., :k]
+    d = torch.gather(d, -1, order)
+    i = torch.gather(i, -1, order)
+    short = k - d.shape[-1]
+    if short > 0:
+        d = torch.nn.functional.pad(d, (0, short), value=float("inf"))
+        i = torch.nn.functional.pad(i, (0, short), value=INVALID_ID)
+    return d, i

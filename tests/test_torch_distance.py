@@ -75,3 +75,30 @@ def test_cosine_zero_vector_guard_matches_jax():
                                             jd.Metric.COSINE))
     np.testing.assert_array_equal(got, want)
     np.testing.assert_allclose(got, 1.0)
+
+
+# (B, C, d) with nothing aligned; candidates in f32 and in bf16 as the beam
+# gathers them
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("shape", [(5, 17, 33), (9, 64, 128)])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_gathered_distances_match_jax(metric, shape, dtype):
+    b, c, d = shape
+    rng = np.random.default_rng(sum(shape))
+    # unit-norm rows, the scale of the embeddings the beam scores
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=-1, keepdims=True)
+    cand = rng.standard_normal((b, c, d)).astype(np.float32)
+    cand /= np.linalg.norm(cand, axis=-1, keepdims=True)
+    cand[0, 0] = 0.0   # cosine: the zero-norm guard
+    cand[1, 1] = q[1]  # l2: an exact match, clamped at 0
+    tc = torch.from_numpy(cand).to(getattr(torch, dtype))
+    want = np.asarray(jd.gathered_distances(
+        jnp.asarray(q), jnp.asarray(tc.float().numpy()), jd.Metric(metric)))
+    got = td.gathered_distances(torch.from_numpy(q), tc, metric).numpy()
+    assert got.shape == (b, c) and got.dtype == np.float32
+    # the same f32 products summed in another order: a few ulps of terms
+    # of magnitude ~1 apart
+    np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
+    if metric == "l2":
+        assert (got >= 0).all()

@@ -159,7 +159,9 @@ def test_flat_index_errors():
     with pytest.raises(ValueError, match="precision"):
         FlatIndex(8, "cosine", precision="fastest")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flat_topk(torch.zeros(1, 8), torch.zeros(4, 8), 1, precision="default")
+        flat_topk(torch.zeros(1, 8), torch.zeros(4, 8), 1, precision="int8")
+    with pytest.raises(ValueError, match="precision"):
+        flat_topk(torch.zeros(1, 8), torch.zeros(4, 8), 1, precision="fastest")
 
 
 def _jax_state(jidx):
@@ -260,4 +262,75 @@ def test_kernel_launcher_refuses_cpu_tensors():
         flat_topk_cuda(q, c.double(), 3)
     with pytest.raises(ValueError, match="strided"):
         flat_topk_cuda(q, torch.zeros(8, 5).T, 3)
+    assert _build.LAUNCHES["flat_topk"] == 0
+
+
+def _bf16(x: np.ndarray) -> np.ndarray:
+    """Round f32 to bf16 (round to nearest even), back to f32."""
+    return torch.from_numpy(x).bfloat16().float().numpy()
+
+
+def _default_reference64(q, c, valid, metric):
+    """float64 distances of the bf16 mode: the unit query and the raw
+    corpus row rounded to bf16, the epilogue from the f32 rows."""
+    q = q.astype(np.float64)
+    c32 = c
+    if metric == "cosine":
+        q = q / np.linalg.norm(q, axis=1, keepdims=True)
+    dots = _bf16(q.astype(np.float32)).astype(np.float64) @ _bf16(c32).astype(np.float64).T
+    cn = (c32.astype(np.float64) ** 2).sum(1)
+    if metric == "l2":
+        dist = (q ** 2).sum(1)[:, None] - 2 * dots + cn[None, :]
+    elif metric == "cosine":
+        dist = 1 - dots / np.sqrt(cn)[None, :]
+    else:
+        dist = -dots
+    return np.where(valid[None, :], dist, np.inf)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+@pytest.mark.parametrize("precision", ["default", "bfloat16"])
+def test_flat_topk_bf16_mode_matches_float64_reference(metric, precision):
+    """The plain bf16-operand mode against a float64 numpy reference on
+    bf16-rounded operands: distances within 1e-5 (f32 sums of exact
+    products against float64), ids equal except where the float64 distances
+    of the two ids are tied within that tolerance."""
+    b, n, d, k = 9, 1500, 72, 33
+    q, c, valid = _data(41, b, n, d, True)
+    ref = _default_reference64(q, c, valid, metric)
+    order = np.argsort(ref, axis=1, kind="stable")[:, :k]
+    want_d = np.take_along_axis(ref, order, axis=1)
+    gd, gi = flat_topk_plain(torch.from_numpy(q), torch.from_numpy(c), k,
+                             metric=metric, corpus_valid=torch.from_numpy(valid),
+                             precision=precision)
+    gd, gi = gd.numpy(), gi.numpy().astype(np.int64)
+    np.testing.assert_allclose(gd, want_d, rtol=1e-5, atol=1e-5)
+    diff = gi != order
+    got_ref = np.take_along_axis(ref, gi, axis=1)
+    assert np.all(np.abs(got_ref - want_d)[diff] <= 1e-5 * (1 + np.abs(want_d[diff])))
+
+
+def test_flat_bf16_mode_recall_vs_highest():
+    """Recall@10 of the bf16-operand mode against the exact one on
+    unit-norm Gaussian rows: at least 0.98."""
+    rng = np.random.default_rng(43)
+    c = rng.standard_normal((3000, 64)).astype(np.float32)
+    c /= np.linalg.norm(c, axis=1, keepdims=True)
+    q = c[:200] + 0.3 * rng.standard_normal((200, 64)).astype(np.float32)
+    fast = FlatIndex(64, "cosine", precision="default")
+    exact = FlatIndex(64, "cosine")
+    for idx in (fast, exact):
+        idx.insert(np.arange(3000), c)
+    fi, _ = fast.search(q, k=10)
+    ei, _ = exact.search(q, k=10)
+    rec = np.mean([len(set(a) & set(b)) / 10 for a, b in zip(fi, ei)])
+    assert rec >= 0.98, rec
+    assert fast.precision == "default"
+
+
+def test_kernel_launcher_bf16_mode_refuses_cpu_tensors():
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flat_topk_cuda(torch.zeros(2, 8), torch.zeros(5, 8), 3, precision="default")
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        flat_topk_cuda(torch.zeros(2, 8), torch.zeros(5, 8), 3, precision="int8")
     assert _build.LAUNCHES["flat_topk"] == 0

@@ -1,0 +1,317 @@
+"""muninn_tpu_torch's HnswIndex against muninn_tpu's on the CPU.
+
+The same seeded numpy inputs go through both packages: the bulk build
+(levels, entry point, upper-level tables and the level-0 graph), search
+over a JAX-built graph carried across with ``index.convert`` against JAX's
+fused query path (``_search_topk_fused`` with ``fused=True,
+interpret=True``, as ``tests/test_hnsw.py`` drives it), and the slice as a
+whole: build and search in each package. Sizes are small (n <= 3,000,
+d <= 128, m = 8, wave_size = 512).
+"""
+
+import json
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from muninn_tpu.index.hnsw import HnswIndex as JaxHnswIndex
+from muninn_tpu.index.hnsw import _search_topk_fused as jax_search_topk_fused
+from muninn_tpu.io.checkpoint import save_hnsw
+from muninn_tpu_torch import FlatIndex, HnswIndex
+from muninn_tpu_torch.index.convert import hnsw_index_from_numpy, hnsw_index_to_numpy
+from muninn_tpu_torch.ops import _build
+
+REPO = Path(__file__).resolve().parents[1]
+METRICS = ["l2", "cosine", "inner_product"]
+
+
+def _unit(rng, n, d):
+    x = rng.standard_normal((n, d)).astype(np.float32)
+    return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+
+def _pair(n, d, metric, precision, seed=5):
+    """The same rows bulk-inserted into a JAX and a port index."""
+    x = _unit(np.random.default_rng(seed), n, d)
+    j = JaxHnswIndex(d, metric, m=8, ef_construction=64, wave_size=512,
+                     capacity=n, seed=seed)
+    t = HnswIndex(d, metric, m=8, ef_construction=64, wave_size=512,
+                  capacity=n, seed=seed)
+    j.build_precision = t.build_precision = precision
+    j.insert(np.arange(n), x)
+    t.insert(np.arange(n), x)
+    return j, t, x
+
+
+def _row_sets_equal(a, b):
+    return np.array([set(u[u >= 0]) == set(v[v >= 0]) for u, v in zip(a, b)])
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_bulk_build_matches_jax_at_highest(metric):
+    """Exact sweeps on both sides: the same levels, entry point and hi
+    rows; level-0 rows equal as sets in >= 99% of rows (a float64 tie
+    may swap the last neighbour); edge distances within 1e-5; upper-level
+    rows equal as sets in >= 99% of rows."""
+    n = 2500
+    j, t, _ = _pair(n, 64, metric, "highest")
+    np.testing.assert_array_equal(t.levels, j.levels)
+    assert (t.entry_point, t.max_level) == (j.entry_point, j.max_level)
+    assert t._hi_count == j._hi_count
+    np.testing.assert_array_equal(t.hi_index.numpy(), np.asarray(j.hi_index))
+    jn, tn = np.asarray(j.neighbors0)[:n], t.neighbors0.numpy()[:n]
+    assert _row_sets_equal(tn, jn).mean() >= 0.99
+    same = _row_sets_equal(tn, jn)
+    jd, td = np.asarray(j.dists0)[:n][same], t.dists0.numpy()[:n][same]
+    np.testing.assert_array_equal(np.isinf(td), np.isinf(jd))
+    fin = np.isfinite(jd)
+    # the same f32 products summed in another order; each row is sorted,
+    # so equal sets give aligned distances
+    np.testing.assert_allclose(td[fin], jd[fin], rtol=1e-5, atol=1e-5)
+    jh, th = np.asarray(j.hi_neighbors), t.hi_neighbors.numpy()
+    assert jh.shape == th.shape
+    rows = slice(0, t._hi_count)
+    assert _row_sets_equal(th[rows].reshape(-1, 8), jh[rows].reshape(-1, 8)).mean() >= 0.99
+
+
+def test_bulk_build_at_default_precision_agrees_with_jax():
+    """The port's default sweep ranks by bf16 operands, JAX's on the CPU in
+    f32: at least 97% of level-0 edges agree."""
+    n = 2500
+    j, t, _ = _pair(n, 64, "cosine", "default")
+    jn, tn = np.asarray(j.neighbors0)[:n], t.neighbors0.numpy()[:n]
+    agree = np.mean([len(set(u) & set(v)) / len(u) for u, v in zip(tn, jn)])
+    assert agree >= 0.97, agree
+    np.testing.assert_array_equal(t.levels, j.levels)
+
+
+def _carry(j, tmp_path):
+    """The JAX index's checkpoint fields, as save_hnsw writes them."""
+    save_hnsw(j, tmp_path)
+    state = dict(np.load(tmp_path / "arrays.npz"))
+    state.update(json.loads((tmp_path / "manifest.json").read_text()))
+    return state
+
+
+def _recall(ids, truth):
+    k = truth.shape[1]
+    return np.mean([len(set(a[a >= 0]) & set(b)) / k for a, b in zip(ids, truth)])
+
+
+def _assert_same_results(tid, tdist, jid, jdist, truth, k):
+    """Per-query id overlap >= 0.98, distances of shared ids within 1e-5,
+    the port's recall at least JAX's - 0.01."""
+    overlap = np.mean([len(set(a) & set(b)) / k for a, b in zip(tid, jid)])
+    assert overlap >= 0.98, overlap
+    for a, da, b, db in zip(tid, tdist, jid, jdist):
+        theirs = dict(zip(b.tolist(), db.tolist()))
+        for i, dv in zip(a.tolist(), da.tolist()):
+            if i in theirs:
+                assert abs(dv - theirs[i]) <= 1e-5 * (1 + abs(dv))
+    assert _recall(tid, truth) >= _recall(jid, truth) - 0.01
+
+
+def _jax_fused_search(j, q, k, ef):
+    pool = j._routing_pool()
+    packed = j._maybe_packed(force=True)
+    d, s = jax_search_topk_fused(
+        jnp.asarray(q), pool, j._pool_vecs(pool), j.store.vectors,
+        j._vecs16(), j.neighbors0, j.store.valid, j.metric, k, ef,
+        j.expand, min(j.route_entries, ef),
+        True,  # interpret
+        None, 0, packed, True, -(-ef // j.expand) + 1, True, None, 0,
+    )
+    return j.store.ids_of(np.asarray(s)), np.asarray(d)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_search_on_carried_graph_matches_jax_fused(metric, tmp_path):
+    """JAX's graph carried across: the port's search (packed blocks, then
+    the row path) against JAX's fused query path on the same graph."""
+    n, d, k, ef = 3000, 128, 10, 32
+    rng = np.random.default_rng(11)
+    x = _unit(rng, n, d)
+    q = x[:64] + 0.05 * rng.standard_normal((64, d)).astype(np.float32)
+    j = JaxHnswIndex(d, metric, m=8, ef_construction=64, wave_size=512,
+                     capacity=n)
+    j.insert(np.arange(n), x)
+    t = hnsw_index_from_numpy(_carry(j, tmp_path))
+    flat = FlatIndex(d, metric)
+    flat.insert(np.arange(n), x)
+    truth, _ = flat.search(q, k=k)
+    jid, jdist = _jax_fused_search(j, q, k, ef)
+
+    t.exact_small_n = 0  # the beam path at this size
+    assert t._maybe_packed() is None  # the CPU packs only when asked
+    t.pack_neighbors()
+    packed = t._maybe_packed()
+    assert packed is not None and packed.dtype == torch.bfloat16
+    assert packed.shape == (t.store.capacity, t.m0, d)
+    tid, tdist = t.search(q, k=k, ef_search=ef)
+    _assert_same_results(tid, tdist, jid, jdist, truth, k)
+
+    t.pack_budget_bytes = 0  # over budget: no table, the row path
+    t.pack_neighbors()
+    assert t._maybe_packed() is None
+    rid, rdist = t.search(q, k=k, ef_search=ef)
+    _assert_same_results(rid, rdist, jid, jdist, truth, k)
+
+
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+def test_slice_build_and_search_against_jax(metric):
+    """The slice as a whole at the default knobs (bf16 bulk sweep, bf16
+    routing and beam) on clustered rows: each package builds and searches
+    its own index. The
+    port's graph differs by bf16 ties, so its recall is held to JAX's
+    within 0.02, and its returned distances are exact f32 distances of the
+    returned rows (within 1e-5)."""
+    n, d, k, ef = 3000, 128, 10, 24
+    # bench.py's recipe: rows = Gaussian centre + 0.3 noise, unit-normalised;
+    # queries = rows + 0.05 noise
+    rng = np.random.default_rng(12)
+    centres = rng.standard_normal((30, d)).astype(np.float32)
+    x = centres[rng.integers(0, 30, n)] + 0.3 * rng.standard_normal((n, d)).astype(np.float32)
+    x /= np.linalg.norm(x, axis=1, keepdims=True)
+    q = x[rng.integers(0, n, 80)] + 0.05 * rng.standard_normal((80, d)).astype(np.float32)
+    j = JaxHnswIndex(d, metric, m=8, ef_construction=64, wave_size=512,
+                     capacity=n, expand=8)
+    t = HnswIndex(d, metric, m=8, ef_construction=64, wave_size=512,
+                  capacity=n, expand=8)
+    j.insert(np.arange(n), x)
+    t.insert(np.arange(n), x)
+    t.exact_small_n = 0
+    t.pack_neighbors()
+    flat = FlatIndex(d, metric)
+    flat.insert(np.arange(n), x)
+    truth, _ = flat.search(q, k=k)
+    tid, tdist = t.search(q, k=k, ef_search=ef)
+    jid, _ = _jax_fused_search(j, q, k, ef)
+    assert _recall(tid, truth) >= _recall(jid, truth) - 0.02
+    assert _recall(tid, truth) >= 0.9
+    rows = x[np.maximum(tid, 0)].astype(np.float64)
+    q64 = q.astype(np.float64)[:, None, :]
+    if metric == "l2":
+        want = ((rows - q64) ** 2).sum(-1)
+    else:
+        want = 1 - (rows * q64).sum(-1) / np.linalg.norm(q64, axis=-1)
+    np.testing.assert_allclose(tdist, want, rtol=1e-5, atol=1e-5)
+
+
+def test_small_index_search_is_exact_flat():
+    """At or below exact_small_n stored rows, search is FlatIndex's."""
+    rng = np.random.default_rng(13)
+    x = _unit(rng, 2100, 32)
+    t = HnswIndex(32, "cosine", m=8, wave_size=512)
+    t.insert(np.arange(2100) + 7, x)
+    flat = FlatIndex(32, "cosine")
+    flat.insert(np.arange(2100) + 7, x)
+    q = x[:9] + 0.1
+    hi, hd = t.search(q, k=5, ef_search=8)
+    fi, fd = flat.search(q, k=5)
+    np.testing.assert_array_equal(hi, fi)
+    np.testing.assert_array_equal(hd, fd)
+    one_i, one_d = t.search(q[0], k=5)
+    assert one_i.shape == one_d.shape == (5,)
+
+
+def test_hnsw_edge_cases_and_errors():
+    t = HnswIndex(16, "l2", m=4, wave_size=64)
+    i, d = t.search(np.zeros((3, 16), np.float32), k=4)
+    assert i.shape == (3, 4) and (i == -1).all() and np.isinf(d).all()
+    with pytest.raises(ValueError, match="query dim 15 != index dim 16"):
+        t.search(np.zeros(15), k=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t.insert(np.arange(100), np.zeros((100, 16), np.float32))  # < 4 waves
+    x = np.random.default_rng(14).standard_normal((300, 16)).astype(np.float32)
+    t.insert(np.arange(300), x)
+    assert len(t) == 300
+    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        t.insert(np.arange(300, 600), x)  # into a non-empty index
+    with pytest.raises(ValueError, match="m must be >= 2"):
+        HnswIndex(16, m=1)
+    with pytest.raises(ValueError, match="invalid metric"):
+        HnswIndex(16, "euclidean")
+
+
+def test_hnsw_state_round_trips(tmp_path):
+    rng = np.random.default_rng(15)
+    x = _unit(rng, 1100, 24)
+    j = JaxHnswIndex(24, "cosine", m=6, ef_construction=40, wave_size=256,
+                     capacity=1100)
+    j.insert(np.arange(1100) * 2 + 1, x)
+    state = _carry(j, tmp_path)
+    t = hnsw_index_from_numpy(state)
+    assert len(t) == 1100 and t.store.slot(2 * 17 + 1) == 17
+    back = hnsw_index_to_numpy(t)
+    assert set(back) == set(state) - {"kind", "format_version"}
+    for key, val in back.items():
+        np.testing.assert_array_equal(np.asarray(val), np.asarray(state[key]), err_msg=key)
+    # the port's own state round-trips too
+    again = hnsw_index_to_numpy(hnsw_index_from_numpy(back))
+    for key, val in again.items():
+        np.testing.assert_array_equal(np.asarray(val), np.asarray(back[key]), err_msg=key)
+    bad = dict(back, valid=~back["valid"])
+    with pytest.raises(ValueError, match="valid"):
+        hnsw_index_from_numpy(bad)
+    with pytest.raises(ValueError, match="neighbors0"):
+        hnsw_index_from_numpy(dict(back, neighbors0=back["neighbors0"][:, :3]))
+    with pytest.raises(ValueError, match="outside the store"):
+        hnsw_index_from_numpy(dict(back, neighbors0=back["neighbors0"] + 5000))
+    with pytest.raises(ValueError, match="hi_index points outside"):
+        hnsw_index_from_numpy(dict(back, hi_index=back["hi_index"] + 10**6))
+
+
+def _run(code, env=None):
+    return subprocess.run(
+        [sys.executable, "-c", textwrap.dedent(code)], cwd=REPO, env=env,
+        capture_output=True, text=True, timeout=120,
+    )
+
+
+def test_hnsw_modules_import_no_jax():
+    res = _run("""
+        import sys
+        from muninn_tpu_torch import HnswIndex
+        from muninn_tpu_torch.index import convert, hnsw
+        from muninn_tpu_torch.ops import beam
+        bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
+               or m == "muninn_tpu" or m.startswith("muninn_tpu.")]
+        assert not bad, bad
+    """)
+    assert res.returncode == 0, res.stderr
+
+
+def test_hnsw_cpu_path_never_builds_or_launches(tmp_path):
+    """Build and search (packed and row paths) on CPU tensors run the plain
+    versions: no launch is counted and nvcc is never called."""
+    fake = tmp_path / "bin"
+    fake.mkdir()
+    marker = tmp_path / "nvcc_called"
+    nvcc = fake / "nvcc"
+    nvcc.write_text(f"#!/bin/sh\ntouch {marker}\nexit 1\n")
+    nvcc.chmod(0o755)
+    env = dict(os.environ, PATH=f"{fake}{os.pathsep}{os.environ['PATH']}",
+               CUDA_HOME=str(tmp_path))
+    res = _run("""
+        import numpy as np
+        from muninn_tpu_torch.ops import _build
+        from muninn_tpu_torch import HnswIndex
+        x = np.random.default_rng(0).standard_normal((600, 8)).astype(np.float32)
+        idx = HnswIndex(8, "cosine", m=4, wave_size=128)
+        idx.insert(np.arange(600), x)
+        idx.exact_small_n = 0
+        idx.search(x[:5], k=3)
+        idx.pack_neighbors()
+        idx.search(x[:5], k=3)
+        assert _build.LAUNCHES == {"flat_topk": 0, "beam_dots": 0}, _build.LAUNCHES
+        assert not _build._LIBS
+    """, env=env)
+    assert res.returncode == 0, res.stderr
+    assert not marker.exists()

@@ -83,3 +83,22 @@ def test_merge_topk_random_matches_jax(seed):
     (wd, wi), (gd, gi) = _both_merge(da, ia, db, ib)
     np.testing.assert_array_equal(gd, wd)
     np.testing.assert_array_equal(gi, wi)
+
+
+@pytest.mark.parametrize("seed", range(4))
+@pytest.mark.parametrize("k", [3, 12, 40])
+def test_sorted_topk_unique_matches_jax(seed, k):
+    """Duplicate ids with distinct distances, (inf, -1) slots, and k above
+    the candidate count (width 24): the tail is padded with (inf, -1)."""
+    rng = np.random.default_rng(seed)
+    d = rng.standard_normal((4, 24)).astype(np.float32)
+    i = rng.integers(-1, 15, (4, 24)).astype(np.int32)
+    d = np.where(i < 0, np.inf, d).astype(np.float32)
+    wd, wi = jt.sorted_topk_unique(jnp.asarray(d), jnp.asarray(i), k)
+    gd, gi = tt.sorted_topk_unique(torch.from_numpy(d), torch.from_numpy(i), k)
+    assert gd.shape == (4, k) and gi.dtype == torch.int32
+    # only moves values: equal, not close (rtol=atol=1e-5 would also hold)
+    np.testing.assert_array_equal(gd.numpy(), np.asarray(wd))
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    if k > 24:
+        assert np.isinf(gd.numpy()[:, 24:]).all() and (gi.numpy()[:, 24:] == -1).all()
