@@ -21,19 +21,40 @@ Phases, each of which exits non-zero on failure:
    queries at k=10, delete 1,000 ids, search again; both searches held
    against the plain version as in phase 3 (distances within TOL, ids
    equal up to float64 ties), no deleted id returned, and the kernel's
-   launches counted over exactly this run; then kernel and plain timed;
+   launches counted over exactly this run; then kernel, plain and the
+   library call (one f32 matmul, TF32 off, and ``torch.topk``) timed;
 5. 1,000,000 x 768 cosine, 1,024 queries, k=10: one search through the
-   index, held against the plain version the same way, both timed;
-6. the ``gather_block_dots`` kernel against its plain version: bf16 and f32
-   blocks, d in {100, 128, 384, 768}, R0 in {16, 32}, E in {1, 8}, B in
-   {1, 37, 300}, 40% dead picks; dots and squared norms within TOL, dead
-   lanes exactly 0;
-7. the bf16-operand mode of ``flat_topk`` (``precision="default"``) against
+   index, held against the plain version the same way; kernel, plain and
+   the library call of phase 4 timed;
+6. the kernel's int8 mode (``flat_topk_int8``) against its plain version:
+   cosine and inner product, d in {100, 384, 768}, k in {1, 10, 64, 1024},
+   masked and unmasked, B from 1 to 300 (24 cases); distances bitwise
+   equal, ids equal except where the two rows' rank-only tile values are
+   equal;
+7. the int8 main path at ``bench.py``'s north-star shape
+   (``bench.py:482-483``, ``:511-539``), on phase 5's 1M x 768 rows with
+   8,192 queries, k=10: ``FlatIndex(precision="int8_rescored")`` at r=16
+   (recall@10 >= 0.98 against exact ``highest`` on the first 512 queries,
+   returned distances within TOL of float64) with its ``flat_topk_int8``
+   launches counted over exactly this search; ``QuantizedFlatIndex``
+   insert, search, delete 1,000 ids, search again (no deleted id, recall@10
+   >= 0.90); ``proj_rescored`` at proj_dim 128 and r=32 (recall reported);
+   ``tune_rescore_r`` once; the int8 kernel, its plain version and the
+   library call (``torch._int_mm`` per 65,536-row chunk, the same epilogue,
+   ``torch.topk``) timed at the main path's call;
+8. the ``gather_block_dots`` kernel against its plain version: f32, bf16
+   and int8 blocks, d in {100, 128, 384, 768}, R0 in {16, 32}, E in {1, 8},
+   B in {1, 37, 300}, 40% dead picks; dots and squared norms within TOL
+   (int8: after the caller's per-neighbour scaling), dead lanes exactly 0;
+9. the bf16-operand mode of ``flat_topk`` (``precision="default"``) against
    its plain version: three metrics, k up to 33, a 30% mask, ids equal up to
    float64 ties of the bf16-rounded operands; then ``FlatIndex(precision=
-   "default")`` on phase 4's data, held the same way, timed against plain,
-   with its recall against phase 4's exact result;
-8. the HNSW main path at ``bench.py``'s HNSW workload (``bench.py:377-381``)
+   "default")`` on phase 4's data, held the same way, timed against plain
+   and the library call (one bf16 matmul with f32 sums and output,
+   ``torch.mm(..., out_dtype=torch.float32)``, and ``torch.topk``; its top-1
+   distances held to the kernel's within TOL), with its recall against
+   phase 4's exact result;
+10. the HNSW main path at ``bench.py``'s HNSW workload (``bench.py:377-381``)
    on phase 4's data: ``HnswIndex`` of 100,000 x 384 cosine rows, m=16,
    ef_construction=200, wave_size=4,096, capacity 136,864, expand=8,
    seed=42; bulk insert (timed), pack, search 8,192 queries at k=10,
@@ -41,7 +62,15 @@ Phases, each of which exits non-zero on failure:
    returned distances equal to the exact distance of each returned row,
    recall@10 against phase 4's exact result at least 0.95; then the search
    timed, and ``gather_block_dots`` kernel against plain on the picks of
-   the first beam step of one 2,816-query chunk (E=8, R0=32, d=384, bf16).
+   the first beam step of one 2,816-query chunk (E=8, R0=32, d=384, bf16);
+11. the same index with int8 beam guidance (``search_quant = "int8"``,
+   repacked): search held and timed as in phase 10, with ``beam_dots``
+   launched on int8 blocks; then ``gather_block_dots`` on the int8 table
+   at the chunk shape against plain.
+
+Each kernel's record carries its bound: the larger of the operations over
+the card's peak rate for their type and the bytes (each input read once,
+each output written once) over 3.35 TB/s, from the H100 SXM data sheet.
 
 The line before the last is the kernels' JSON record; the last line is
 ``{"ok": true, "device": {...}}``. Without a CUDA device, or without the
@@ -67,6 +96,12 @@ import torch
 TOL = 1e-5
 METRICS = ("l2", "cosine", "inner_product")
 MIN_HNSW_RECALL = 0.95
+MIN_RESCORED_RECALL = 0.98   # int8_rescored, r=16, against exact
+MIN_QUANTIZED_RECALL = 0.90  # QuantizedFlatIndex, int8-only ranking
+# H100 SXM data sheet, dense, at 700 W: FP32 on CUDA cores, bf16 and int8 on
+# tensor cores, HBM bandwidth
+PEAK = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
+HBM_BYTES_PER_S = 3.35e12
 
 
 def check(cond: bool, msg: str) -> None:
@@ -97,6 +132,14 @@ def device_ms(fn, reps: int = 5) -> float:
         end.synchronize()
         times.append(start.elapsed_time(end))
     return statistics.median(times)
+
+
+def bound(ops: float, peak: str, nbytes: float) -> tuple[float, str]:
+    """The least time in ms the card could take: the larger of ``ops`` at
+    ``PEAK[peak]`` and ``nbytes`` at the HBM rate, and which one it is."""
+    t_ops = ops / PEAK[peak] * 1e3
+    t_bytes = nbytes / HBM_BYTES_PER_S * 1e3
+    return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
 def dist64(q: np.ndarray, c: np.ndarray, metric: str) -> np.ndarray:
@@ -167,6 +210,37 @@ def compare(kd, ki, pd, pi, q, c, valid, metric, ref=dist64) -> float:
     return float(np.max(np.abs(kd[fin] - pd[fin]), initial=0.0))
 
 
+def int8_tiles(qi: np.ndarray, ci: np.ndarray, cs: np.ndarray,
+               cp: np.ndarray) -> np.ndarray:
+    """Rank-only tile values of matching rows, as the kernel forms them:
+    the exact integer dot rounded once to f32, ``cp - dot * cs`` with each
+    step rounded in f32."""
+    dots = (qi.astype(np.int64) * ci.astype(np.int64)).sum(-1)
+    return cp.astype(np.float32) - dots.astype(np.float32) * cs.astype(np.float32)
+
+
+def compare_int8(kd, ki, pd, pi, qi, ci, cs, cp) -> float:
+    """The int8 kernel's result (kd, ki) against the plain one (pd, pi):
+    distances bitwise equal; ids equal except at exact ties of the
+    rank-only tile value, judged from the two returned rows themselves.
+    ``qi`` [B, d] and ``ci`` [N, d] int8, ``cs`` and ``cp`` [N] f32, all on
+    the card. Returns the largest absolute distance difference (0)."""
+    check(torch.equal(kd, pd), "int8 distances differ from the plain version")
+    bad = (ki != pi).nonzero()
+    if len(bad):
+        b = bad[:, 0]
+        ka = ki[b, bad[:, 1]].long()
+        pa = pi[b, bad[:, 1]].long()
+        check(bool((ka >= 0).all() and (pa >= 0).all()), "an int8 id is -1")
+        qb, ck, cpl, csk, cpk, csp, cpp = (t.cpu().numpy() for t in (
+            qi[b], ci[ka], ci[pa], cs[ka], cp[ka], cs[pa], cp[pa]))
+        tk = int8_tiles(qb, ck, csk, cpk)
+        tp = int8_tiles(qb, cpl, csp, cpp)
+        check(np.array_equal(tk, tp), f"{len(bad)} int8 ids differ without a tie")
+    fin = torch.isfinite(pd)
+    return float((kd[fin] - pd[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+
 def recall(kid: np.ndarray, pid: np.ndarray) -> float:
     """Share of the plain top-k ids that the kernel's top-k holds too (no
     allowance for ties: ``compare`` judges those)."""
@@ -211,18 +285,41 @@ def main() -> int:
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
-    from muninn_tpu_torch import FlatIndex, HnswIndex
+    from muninn_tpu_torch import FlatIndex, HnswIndex, QuantizedFlatIndex
     from muninn_tpu_torch.ops import _build, beam
     from muninn_tpu_torch.ops import flat_topk as flat_topk_mod
     from muninn_tpu_torch.ops.beam import (
         gather_block_dots_cuda,
         gather_block_dots_plain,
     )
+    from muninn_tpu_torch.ops.distance import (
+        exact_f32_dots,
+        quantize_rows_int8,
+        unit_rows as unit_t,
+    )
     from muninn_tpu_torch.ops.flat_topk import (
         flat_topk,
         flat_topk_cuda,
+        flat_topk_int8,
+        flat_topk_int8_cuda,
+        flat_topk_int8_plain,
         flat_topk_plain,
     )
+
+    def f32_library(q, c, valid, k):
+        """The library call of ``precision="highest"``: one f32 matmul of the
+        unit rows (TF32 off) and one ``torch.topk``, masked rows excluded."""
+        sims = exact_f32_dots(unit_t(q), unit_t(c))
+        return torch.topk(torch.where(valid, sims, -torch.inf), k, dim=1)
+
+    def bf16_library(q, c, valid, k):
+        """The library call of the bf16-operand mode: one bf16 tensor-core
+        matmul of the unit query and the raw rows, summed and returned in f32
+        (``out_dtype``), 1/|c| folded in after, and one ``torch.topk``."""
+        inv = 1.0 / torch.clamp(torch.linalg.norm(c, dim=1), min=1e-30)
+        sims = torch.mm(unit_t(q).bfloat16(), c.bfloat16().T,
+                        out_dtype=torch.float32) * inv[None, :]
+        return torch.topk(torch.where(valid, sims, -torch.inf), k, dim=1)
 
     # 1. the card
     print(card_line())
@@ -318,16 +415,24 @@ def main() -> int:
                                      corpus_valid=valid))
     plain_ms = device_ms(lambda: flat_topk_plain(qg, corpus, k, metric="cosine",
                                                  corpus_valid=valid))
+
+    library_ms = device_ms(lambda: f32_library(qg, corpus, valid, k))
+    flops = 2.0 * nq * n * d
+    f32_bound, f32_bound_by = bound(flops, "fp32",
+                                    4.0 * (n + nq) * d + n + 8.0 * nq * k)
     print(f"100k x 384, {nq} queries, k={k}: kernel {ms:.3f} ms"
-          f" ({nq / ms * 1e3:.0f} QPS), plain {plain_ms:.3f} ms"
-          f" ({nq / plain_ms * 1e3:.0f} QPS)", flush=True)
+          f" ({nq / ms * 1e3:.0f} QPS, {flops / ms / 1e9:.2f} TFLOP/s),"
+          f" plain {plain_ms:.3f} ms ({nq / plain_ms * 1e3:.0f} QPS), library"
+          f" {library_ms:.3f} ms; bound {f32_bound:.3f} ms ({f32_bound_by})",
+          flush=True)
     del index, corpus, valid, qg, pd, pd1
     torch.cuda.empty_cache()
 
-    # 5. 1M x 768, the north-star shape
+    # 5. 1M x 768, the north-star shape; phase 7 takes all 8,192 queries
     n5, d5, nq5 = 1_000_000, 768, 1024
     gen = torch.Generator(device="cuda").manual_seed(11)
-    x5, q5 = clustered_on_device(gen, n5, d5, 1000, nq5)
+    x5, q7 = clustered_on_device(gen, n5, d5, 1000, 8192)
+    q5 = q7[:nq5]
     big = FlatIndex(d5, "cosine", capacity=n5, device="cuda")
     big.insert(np.arange(n5), x5)
     del x5
@@ -344,17 +449,182 @@ def main() -> int:
                                       corpus_valid=v5))
     plain_ms5 = device_ms(lambda: flat_topk_plain(q5, c5, k, metric="cosine",
                                                   corpus_valid=v5))
+    library_ms5 = device_ms(lambda: f32_library(q5, c5, v5, k))
+    bound5, _ = bound(2.0 * nq5 * n5 * d5, "fp32",
+                      4.0 * (n5 + nq5) * d5 + n5 + 8.0 * nq5 * k)
     print(f"1M x 768, {nq5} queries, k={k}: kernel {ms5:.3f} ms"
           f" ({nq5 / ms5 * 1e3:.0f} QPS), plain {plain_ms5:.3f} ms"
-          f" ({nq5 / plain_ms5 * 1e3:.0f} QPS)", flush=True)
-    del big, c5, v5, q5, pd5
+          f" ({nq5 / plain_ms5 * 1e3:.0f} QPS), library {library_ms5:.3f} ms;"
+          f" bound {bound5:.3f} ms", flush=True)
+    torch.cuda.empty_cache()
+    del pd5
+
+    # 6. the int8 mode of the kernel (flat_topk_int8) vs plain on the card
+    rng = np.random.default_rng(5)
+    n_i8 = 0
+    i8_err = 0.0
+    for mi, metric in enumerate(("cosine", "inner_product")):
+        for di, d6 in enumerate((100, 384, 768)):
+            for ki_, k6 in enumerate((1, 10, 64, 1024)):
+                b, n6 = shapes[(mi + di + ki_) % len(shapes)]
+                qt = torch.from_numpy(unit_rows(
+                    rng.standard_normal((b, d6), dtype=np.float32))).cuda()
+                ct = torch.from_numpy(
+                    rng.standard_normal((n6, d6), dtype=np.float32)).cuda()
+                ci, cs = quantize_rows_int8(ct, normalize=metric == "cosine")
+                masked = (mi + di + ki_) % 2 == 0
+                vt = torch.from_numpy(rng.random(n6) >= 0.3).cuda() if masked else None
+                kd, kid = flat_topk_int8_cuda(qt, ci, cs, k6, metric=metric,
+                                              corpus_valid=vt)
+                torch.cuda.synchronize()
+                pd, pid = flat_topk_int8_plain(qt, ci, cs, k6, metric=metric,
+                                               corpus_valid=vt)
+                qi, _ = quantize_rows_int8(unit_t(qt) if metric == "cosine" else qt)
+                cp = torch.zeros(n6, device="cuda")
+                if vt is not None:
+                    cp = torch.where(vt, cp, torch.inf)
+                i8_err = max(i8_err, compare_int8(kd, kid, pd, pid, qi, ci, cs, cp))
+                n_i8 += 1
+    print(f"flat_topk_int8 kernel vs plain: {n_i8} cases, distances bitwise"
+          " equal, ids equal up to exact tile ties", flush=True)
+
+    # 7. the int8 main path at the north-star shape: 1M x 768 cosine, 8,192
+    # queries, k=10 (bench.py:482-483, :511-539)
+    nq7, r7 = q7.shape[0], 16
+    ext7 = np.arange(n5, dtype=np.int64)
+    _, truth7 = flat_topk(q7[:512], c5, k, metric="cosine", corpus_valid=v5)
+    truth7 = truth7.cpu().numpy()
+    resc = FlatIndex(d5, "cosine", capacity=n5, device="cuda",
+                     precision="int8_rescored")
+    resc.insert(ext7, c5)
+    check(resc.rescore_r == r7, f"int8_rescored r is {resc.rescore_r}")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    rd, rslot = resc.search_device(q7, k)
+    torch.cuda.synchronize()
+    resc_first_s = time.perf_counter() - t0
+    i8_launches = _build.LAUNCHES["flat_topk_int8"]
+    check(i8_launches > 0, f"int8_rescored launched flat_topk_int8 {i8_launches} times")
+    check(bool((rslot >= 0).all() and torch.isfinite(rd).all()),
+          "int8_rescored: a missing result")
+    check(bool((rd[:, 1:] >= rd[:, :-1]).all()), "int8_rescored dists not ascending")
+    rows = c5[rslot.long()].double()
+    want = 1.0 - (rows * unit_t(q7).double()[:, None, :]).sum(-1) / rows.norm(dim=-1)
+    resc_err = float((rd.double() - want).abs().max())
+    check(resc_err <= TOL, f"int8_rescored distance error {resc_err}")
+    del rows, want
+    resc_recall = recall(rslot[:512].cpu().numpy(), truth7)
+    check(resc_recall >= MIN_RESCORED_RECALL,
+          f"int8_rescored recall@{k} {resc_recall} < {MIN_RESCORED_RECALL}")
+    resc_ms = device_ms(lambda: resc.search_device(q7, k), reps=3)
+    print(f"FlatIndex(int8_rescored) 1M x 768, {nq7} queries, k={k}, r={r7}:"
+          f" recall@{k} {resc_recall} (first 512 queries vs exact), max |d|"
+          f" error {resc_err:.3g} vs float64; first search {resc_first_s:.3f} s,"
+          f" then {resc_ms:.3f} ms ({nq7 / resc_ms * 1e3:.0f} QPS); launches"
+          f" {dict(_build.LAUNCHES)}", flush=True)
+
+    # the int8 kernel at the main path's call: 8,192 x 1M x 768, k=r=16
+    vi7, sc7 = resc._i8
+    valid7 = resc.store.valid[:n5]
+    kd7, ki7 = flat_topk_int8(q7, vi7, sc7, r7, metric="cosine", corpus_valid=valid7)
+    pd7, pi7 = flat_topk_int8_plain(q7, vi7, sc7, r7, metric="cosine",
+                                    corpus_valid=valid7)
+    qi7, _ = quantize_rows_int8(unit_t(q7))
+    i8_err = max(i8_err, compare_int8(kd7, ki7, pd7, pi7, qi7, vi7, sc7,
+                                      torch.zeros(n5, device="cuda")))
+    del pd7, pi7, qi7
+    i8_ms = device_ms(lambda: flat_topk_int8(q7, vi7, sc7, r7, metric="cosine",
+                                             corpus_valid=valid7))
+    i8_plain_ms = device_ms(lambda: flat_topk_int8_plain(
+        q7, vi7, sc7, r7, metric="cosine", corpus_valid=valid7))
+
+    def int8_library():
+        # cuBLASLt int8 -> int32 (torch._int_mm) per 65,536-row chunk: its
+        # shape rules (m > 16; k and n multiples of 8) hold at 8,192 x 768
+        # and chunks of 65,536 and 16,960 rows; the same rank-only epilogue
+        qi, qs = quantize_rows_int8(unit_t(q7))
+        part_d, part_i = [], []
+        for lo in range(0, n5, 65536):
+            dots = torch._int_mm(qi, vi7[lo : lo + 65536].T)
+            tile = -(dots.float() * sc7[None, lo : lo + 65536])
+            td, ti = torch.topk(tile, r7, dim=1, largest=False)
+            part_d.append(td)
+            part_i.append(ti + lo)
+        md, pos = torch.topk(torch.cat(part_d, 1), r7, dim=1, largest=False)
+        return 1.0 + qs[:, None] * md, torch.gather(torch.cat(part_i, 1), 1, pos)
+
+    ld7, _ = int8_library()
+    check(torch.equal(ld7, kd7), "the _int_mm yardstick's distances differ")
+    i8_library_ms = device_ms(int8_library)
+    i8_ops = 2.0 * nq7 * n5 * d5
+    # int8 rows and f32 scales and mask in, f32 queries in, [B, r] out
+    i8_bound, i8_bound_by = bound(
+        i8_ops, "int8", n5 * d5 + 5.0 * n5 + 4.0 * nq7 * d5 + 8.0 * nq7 * r7)
+    print(f"flat_topk_int8 {nq7} x 1M x 768, k={r7}: kernel {i8_ms:.3f} ms"
+          f" ({nq7 / i8_ms * 1e3:.0f} QPS, {i8_ops / i8_ms / 1e9:.2f} TOP/s),"
+          f" plain {i8_plain_ms:.3f} ms ({nq7 / i8_plain_ms * 1e3:.0f} QPS),"
+          f" library (_int_mm) {i8_library_ms:.3f} ms"
+          f" ({nq7 / i8_library_ms * 1e3:.0f} QPS); bound {i8_bound:.3f} ms"
+          f" ({nq7 / i8_bound * 1e3:.0f} QPS, {i8_bound_by})", flush=True)
+    r_tuned = resc.tune_rescore_r(k=k)
+    print(f"tune_rescore_r: r={r_tuned}, curve {resc.tune_report}", flush=True)
+    del resc, vi7, sc7, valid7, kd7, ld7, rd, rslot
     torch.cuda.empty_cache()
 
-    # 6. gather_block_dots kernel vs plain on the card
+    quant = QuantizedFlatIndex(d5, "cosine", capacity=n5, device="cuda")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    quant.insert(ext7, c5)
+    qd1, qslot1 = quant.search_device(q7, k)
+    dead7 = np.unique(qslot1[:, 0].cpu().numpy())[:1000]
+    quant.delete(dead7)
+    qd2, qslot2 = quant.search_device(q7, k)
+    torch.cuda.synchronize()
+    quant_s = time.perf_counter() - t0
+    quant_launches = _build.LAUNCHES["flat_topk_int8"]
+    check(quant_launches >= 2, f"QuantizedFlatIndex launched {quant_launches} times")
+    check(len(dead7) == 1000 and len(quant) == n5 - 1000, "quantized delete count")
+    check(not np.isin(qslot2.cpu().numpy(), dead7).any(), "a deleted id came back")
+    check(bool(torch.isfinite(qd2).all() and (qd2[:, 1:] >= qd2[:, :-1]).all()),
+          "quantized dists not finite and ascending")
+    _, truth7b = flat_topk(q7[:512], c5, k, metric="cosine",
+                           corpus_valid=quant.store.valid[:n5])
+    q_recall1 = recall(qslot1[:512].cpu().numpy(), truth7)
+    q_recall2 = recall(qslot2[:512].cpu().numpy(), truth7b.cpu().numpy())
+    check(q_recall2 >= MIN_QUANTIZED_RECALL,
+          f"QuantizedFlatIndex recall@{k} {q_recall2} < {MIN_QUANTIZED_RECALL}")
+    quant_ms = device_ms(lambda: quant.search_device(q7, k), reps=3)
+    print(f"QuantizedFlatIndex 1M x 768: insert, search, delete 1,000, search"
+          f" in {quant_s:.3f} s; recall@{k} {q_recall1} before delete,"
+          f" {q_recall2} after; search {quant_ms:.3f} ms"
+          f" ({nq7 / quant_ms * 1e3:.0f} QPS); launches {quant_launches}",
+          flush=True)
+    del quant, qd1, qd2, qslot1, qslot2
+    torch.cuda.empty_cache()
+
+    proj = FlatIndex(d5, "cosine", capacity=n5, device="cuda",
+                     precision="proj_rescored", proj_dim=128)
+    proj.insert(ext7, c5)
+    t0 = time.perf_counter()
+    pjd, pjslot = proj.search_device(q7, k)
+    torch.cuda.synchronize()
+    proj_first_s = time.perf_counter() - t0
+    check(bool((pjslot >= 0).all() and torch.isfinite(pjd).all()),
+          "proj_rescored: a missing result")
+    proj_recall = recall(pjslot[:512].cpu().numpy(), truth7)
+    proj_ms = device_ms(lambda: proj.search_device(q7, k), reps=3)
+    print(f"FlatIndex(proj_rescored) proj_dim=128, r={proj.rescore_r}: recall@{k}"
+          f" {proj_recall} (no floor); first search (basis, shadow) "
+          f"{proj_first_s:.3f} s, then {proj_ms:.3f} ms"
+          f" ({nq7 / proj_ms * 1e3:.0f} QPS)", flush=True)
+    del proj, pjd, pjslot, big, c5, v5, q5, q7
+    torch.cuda.empty_cache()
+
+    # 8. gather_block_dots kernel vs plain on the card
     rng = np.random.default_rng(6)
     beam_err = 0.0
     n_beam = 0
-    for dtype in (torch.bfloat16, torch.float32):
+    for dtype in (torch.bfloat16, torch.float32, torch.int8):
         for d6 in (100, 128, 384, 768):
             for r0 in (16, 32):
                 for e in (1, 8):
@@ -363,7 +633,11 @@ def main() -> int:
                         blocks = rng.standard_normal((cap, r0, d6),
                                                      dtype=np.float32)
                         blocks /= np.linalg.norm(blocks, axis=2, keepdims=True)
-                        packed = torch.from_numpy(blocks).cuda().to(dtype)
+                        packed = torch.from_numpy(blocks).cuda()
+                        if dtype == torch.int8:
+                            packed, scales = quantize_rows_int8(packed)
+                        else:
+                            packed = packed.to(dtype)
                         qb = torch.from_numpy(unit_rows(
                             rng.standard_normal((b, d6), dtype=np.float32))).cuda()
                         picks = rng.integers(0, cap, (b, e)).astype(np.int32)
@@ -378,6 +652,12 @@ def main() -> int:
                         lanes = np.repeat(dead, r0, axis=1)
                         check(bool((kd6[lanes] == 0).all() and (kc6[lanes] == 0).all()),
                               "beam_dots: a dead lane is not 0")
+                        if dtype == torch.int8:
+                            # the caller's per-neighbour dequantization
+                            ps = scales[it.clamp(min=0).long()].reshape(b, e * r0)
+                            ps = ps.cpu().numpy()
+                            kd6, pd6 = kd6 * ps, pd6 * ps
+                            kc6, pc6 = kc6 * ps * ps, pc6 * ps * ps
                         np.testing.assert_allclose(kd6, pd6, rtol=TOL, atol=TOL)
                         np.testing.assert_allclose(kc6, pc6, rtol=TOL, atol=TOL)
                         beam_err = max(beam_err, float(np.abs(kd6 - pd6).max(initial=0)),
@@ -386,7 +666,7 @@ def main() -> int:
     print(f"beam_dots kernel vs plain: {n_beam} cases agree, max error"
           f" {beam_err:.3g}", flush=True)
 
-    # 7. flat_topk's bf16-operand mode, kernel vs plain
+    # 9. flat_topk's bf16-operand mode, kernel vs plain
     bf_err = 0.0
     n_bf = 0
     for mi, metric in enumerate(METRICS):
@@ -420,15 +700,26 @@ def main() -> int:
                                          corpus_valid=valid, precision="default"))
     plain_ms_def = device_ms(lambda: flat_topk_plain(
         qg, corpus, k, metric="cosine", corpus_valid=valid, precision="default"))
+    # the yardstick computes the kernel's function: its top-1 is the
+    # kernel's up to a tie of the bf16-rounded operands
+    lib_d, lib_i = bf16_library(qg, corpus, valid, k)
+    lib_top = lib_i[:, 0].int()
+    check(bool(torch.isclose(1.0 - lib_d[:, 0], fd[:, 0], rtol=TOL, atol=TOL).all()),
+          "the bf16 yardstick's top-1 distances differ from the kernel's")
+    library_ms_def = device_ms(lambda: bf16_library(qg, corpus, valid, k))
+    bound_def = bound(flops, "bf16", 4.0 * (n + nq) * d + n + 8.0 * nq * k)[0]
     print(f"flat_topk bf16 mode vs plain: {n_bf + 1} cases agree, max |d| error"
           f" {bf_err:.3g}; FlatIndex(precision='default') 100k x 384, {nq}"
           f" queries: recall@{k} {fast_recall} vs exact; kernel {ms_def:.3f} ms"
-          f" ({nq / ms_def * 1e3:.0f} QPS), plain {plain_ms_def:.3f} ms",
+          f" ({nq / ms_def * 1e3:.0f} QPS), plain {plain_ms_def:.3f} ms, library"
+          f" (bf16 matmul, f32 out) {library_ms_def:.3f} ms; bound"
+          f" {bound_def:.3f} ms; top-1 equal to the kernel's in"
+          f" {float((lib_top == fslot[:, 0]).float().mean()):.5f} of queries",
           flush=True)
-    del fast, corpus, valid, pd
+    del fast, corpus, valid, pd, lib_d, lib_i
     torch.cuda.empty_cache()
 
-    # 8. the HNSW main path at bench.py's HNSW workload, on phase 4's data
+    # 10. the HNSW main path at bench.py's HNSW workload, on phase 4's data
     ef, m, wave = 24, 16, 4096
     hnsw = HnswIndex(d, "cosine", m=m, ef_construction=200,
                      capacity=n + 32_768 + wave, seed=42, expand=8,
@@ -483,37 +774,124 @@ def main() -> int:
                    float((kc8 - pc8).abs().max()))
     beam_ms = device_ms(lambda: gather_block_dots_cuda(qc, picks, packed), reps=20)
     beam_plain_ms = device_ms(lambda: gather_block_dots_plain(qc, picks, packed))
-    beam_bytes = picks.numel() * packed.shape[1] * packed.shape[2] * packed.element_size()
+    live_picks = int((picks >= 0).sum())
+
+    def beam_bound(pk):
+        """Bytes of the live picks' blocks, the queries and ids read, and
+        the two [B, E*R0] f32 outputs written."""
+        nbytes = (live_picks * pk.shape[1] * pk.shape[2] * pk.element_size()
+                  + qc.numel() * 4 + picks.numel() * 4
+                  + 2 * picks.numel() * pk.shape[1] * 4)
+        # a multiply-add for the dot and one for the squared norm
+        return bound(4.0 * live_picks * pk.shape[1] * pk.shape[2], "fp32", nbytes)
+
+    beam_bound_ms, beam_bound_by = beam_bound(packed)
+    block_bytes = live_picks * packed.shape[1] * packed.shape[2] * packed.element_size()
     print(f"gather_block_dots at [{chunk}, {picks.shape[1]}] x"
           f" [{packed.shape[1]}, {packed.shape[2]}] bf16: kernel {beam_ms:.4f} ms"
-          f" ({beam_bytes / beam_ms / 1e6:.0f} GB/s of blocks read), plain"
-          f" {beam_plain_ms:.4f} ms", flush=True)
+          f" ({block_bytes / beam_ms / 1e6:.0f} GB/s of blocks read), plain"
+          f" {beam_plain_ms:.4f} ms; bound {beam_bound_ms:.4f} ms"
+          f" ({beam_bound_by})", flush=True)
+    del packed
+
+    # 11. int8 beam guidance on the same graph, repacked
+    hnsw.search_quant = "int8"
+    hnsw.pack_neighbors()
+    packed8 = hnsw._maybe_packed()
+    check(packed8 is not None and packed8.dtype == torch.int8,
+          "the int8 packed table was not built")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    hids8, hd8 = hnsw.search(qq, k=k, ef_search=ef)
+    torch.cuda.synchronize()
+    first8_s = time.perf_counter() - t0
+    hnsw8_launches = dict(_build.LAUNCHES)
+    check(hnsw8_launches["beam_dots_int8"] > 0 and hnsw8_launches["beam_dots"] == 0,
+          f"int8 guidance launches {hnsw8_launches}")
+    check(hids8.shape == (nq, k) and bool((hids8 >= 0).all())
+          and bool(np.isfinite(hd8).all()), "HNSW int8: a missing result")
+    check(bool(np.all(hd8[:, 1:] >= hd8[:, :-1])), "HNSW int8 dists not ascending")
+    true8 = dist64(np.repeat(qq, k, axis=0), x[(hids8 - ext[0]).reshape(-1)],
+                   "cosine").reshape(nq, k)
+    np.testing.assert_allclose(hd8, true8, rtol=TOL, atol=TOL)
+    hnsw8_recall = recall(hids8, ids1)
+    check(hnsw8_recall >= MIN_HNSW_RECALL,
+          f"HNSW int8 recall@{k} {hnsw8_recall} < {MIN_HNSW_RECALL}")
+    search8_ms = device_ms(lambda: hnsw.search_device(qg, k, ef), reps=3)
+    print(f"HNSW int8 guidance, ef={ef}: {nq} queries: first search"
+          f" {first8_s:.3f} s, then {search8_ms:.3f} ms"
+          f" ({nq / search8_ms * 1e3:.0f} QPS); recall@{k} {hnsw8_recall};"
+          f" launches {hnsw8_launches}", flush=True)
+    ps8 = hnsw._packed_scales[picks.clamp(min=0).long()].reshape(chunk, -1)
+    kd11, kc11 = gather_block_dots_cuda(qc, picks, packed8)
+    torch.cuda.synchronize()
+    pd11, pc11 = gather_block_dots_plain(qc, picks, packed8)
+    torch.testing.assert_close(kd11 * ps8, pd11 * ps8, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(kc11 * ps8 * ps8, pc11 * ps8 * ps8, rtol=TOL, atol=TOL)
+    beam8_err = max(float((kd11 - pd11).mul(ps8).abs().max()),
+                    float((kc11 - pc11).mul(ps8 * ps8).abs().max()))
+    beam8_ms = device_ms(lambda: gather_block_dots_cuda(qc, picks, packed8), reps=20)
+    beam8_plain_ms = device_ms(lambda: gather_block_dots_plain(qc, picks, packed8))
+    beam8_bound_ms, beam8_bound_by = beam_bound(packed8)
+    block8_bytes = live_picks * packed8.shape[1] * packed8.shape[2]
+    print(f"gather_block_dots at [{chunk}, {picks.shape[1]}] x"
+          f" [{packed8.shape[1]}, {packed8.shape[2]}] int8: kernel {beam8_ms:.4f}"
+          f" ms ({block8_bytes / beam8_ms / 1e6:.0f} GB/s of blocks read),"
+          f" plain {beam8_plain_ms:.4f} ms; bound {beam8_bound_ms:.4f} ms"
+          f" ({beam8_bound_by}); max error after scaling {beam8_err:.3g}",
+          flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "flat_topk",
         "route": "cuda",
         "source": "muninn_tpu_torch/csrc/flat_topk.cu",
         "replaces": "muninn_tpu/ops/pallas_flat.py:49",
-        "ported_from": "ops/pallas_flat.py:_flat_topk_kernel",
         "launches": hnsw_launches["flat_topk"],
         "launches_flat_path": launches,
         "max_abs_err": max(max_err, main_err, err5, bf_err),
         "ms": ms,
         "plain_ms": plain_ms,
+        "bound_ms": f32_bound,
+        "bound_by": f32_bound_by,
+        "library_ms": library_ms,
         "ms_1m_768": ms5,
         "plain_ms_1m_768": plain_ms5,
+        "bound_ms_1m_768": bound5,
+        "library_ms_1m_768": library_ms5,
         "ms_default": ms_def,
         "plain_ms_default": plain_ms_def,
+        "bound_ms_default": bound_def,
+        "library_ms_default": library_ms_def,
+    }, {
+        "name": "flat_topk_int8",
+        "route": "cuda",
+        "source": "muninn_tpu_torch/csrc/flat_topk.cu",
+        "replaces": "muninn_tpu/ops/pallas_flat.py:74",
+        "launches": i8_launches,
+        "launches_quantized_path": quant_launches,
+        "max_abs_err": i8_err,
+        "ms": i8_ms,
+        "plain_ms": i8_plain_ms,
+        "bound_ms": i8_bound,
+        "bound_by": i8_bound_by,
+        "library_ms": i8_library_ms,
     }, {
         "name": "beam_dots",
         "route": "cuda",
         "source": "muninn_tpu_torch/csrc/beam_dots.cu",
         "replaces": "muninn_tpu/ops/pallas_beam.py:46",
-        "ported_from": "ops/pallas_beam.py:_beam_dots_kernel",
         "launches": hnsw_launches["beam_dots"],
         "max_abs_err": beam_err,
         "ms": beam_ms,
         "plain_ms": beam_plain_ms,
+        "bound_ms": beam_bound_ms,
+        "bound_by": beam_bound_by,
+        "library_ms": None,
+        "launches_int8": hnsw8_launches["beam_dots_int8"],
+        "max_abs_err_int8": beam8_err,
+        "ms_int8": beam8_ms,
+        "plain_ms_int8": beam8_plain_ms,
+        "bound_ms_int8": beam8_bound_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -5,21 +5,26 @@ The port goes slice by slice beside the JAX package, which stays the
 reference. So far it carries:
 
 - flat KNN: ``FlatIndex`` insert, delete and search at
-  ``precision="highest"`` (exact) and ``"default"``/``"bfloat16"`` (bf16
-  operands), through the hand-written CUDA kernel ``csrc/flat_topk.cu``;
-- HNSW: ``HnswIndex`` bulk build and search (exact routing, bf16 beam over
-  packed neighbour blocks, exact rescore), through ``csrc/flat_topk.cu``
-  and ``csrc/beam_dots.cu``.
+  ``precision="highest"`` (exact), ``"default"``/``"bfloat16"`` (bf16
+  operands), ``"int8_rescored"`` and ``"proj_rescored"`` (an int8 retrieve,
+  then an exact f32 rescore), and ``QuantizedFlatIndex`` (int8 storage),
+  through the hand-written CUDA kernel ``csrc/flat_topk.cu`` (f32, bf16 and
+  int8 operand modes);
+- HNSW: ``HnswIndex`` bulk build and search (exact routing, a bf16 or
+  int8-guided beam over packed neighbour blocks, exact rescore), through
+  ``csrc/flat_topk.cu`` and ``csrc/beam_dots.cu``.
 
-On a CUDA device every kernel wrapper launches its kernel; on the CPU it
-runs its plain PyTorch version. The package imports ``torch`` and numpy,
-never ``jax`` and never ``muninn_tpu``.
+Indexes live on the card (``device="cuda"``) unless the caller passes
+``device="cpu"``. On a CUDA device every kernel wrapper launches its
+kernel; on the CPU it runs its plain PyTorch version. The package imports
+``torch`` and numpy, never ``jax`` and never ``muninn_tpu``.
 """
 
 __version__ = "0.5.0"
 
 from muninn_tpu_torch.ops.distance import Metric, parse_metric  # noqa: F401
-from muninn_tpu_torch.index.flat import FlatIndex  # noqa: F401
+from muninn_tpu_torch.index.flat import FlatIndex, QuantizedFlatIndex  # noqa: F401
 from muninn_tpu_torch.index.hnsw import HnswIndex  # noqa: F401
 
-__all__ = ["Metric", "parse_metric", "FlatIndex", "HnswIndex", "__version__"]
+__all__ = ["Metric", "parse_metric", "FlatIndex", "QuantizedFlatIndex",
+           "HnswIndex", "__version__"]

@@ -5,11 +5,14 @@
 //
 // Replaces: muninn_tpu/ops/pallas_beam.py `_beam_dots_kernel`
 // (pallas_beam.py:46-114), launched through `gather_block_dots` (:117-211,
-// pallas_call at :161).
+// pallas_call at :161), for f32, bf16 and int8 blocks. The int8 blocks of
+// HNSW int8 guidance are multiplied as stored; the caller applies the
+// per-neighbour dequantization scales in its epilogue (hnsw.py:369-373).
 //
 // Contract, as the TPU kernel's:
 //   dots[b, j] = <q[b], packed[idx[b, j / R0]][j % R0]>
 //   cn2[b, j]  = that row's squared norm, summed in f32 from stored values
+//                (int8: integers below 2^24 for D <= 1040, so exact)
 //   a dead pick (idx < 0) issues no load and writes exactly 0 to both.
 // A pick at or above `cap` is a caller's fault: it reads nothing and
 // writes NaN, so the fault shows in the results instead of reading past
@@ -18,7 +21,8 @@
 // What bounds it on an H100: device-memory bytes. Each call reads
 // B*E*R0*D*itemsize of packed blocks (8,192 x 8 x 32 x 384 x 2 B = 1.6 GB
 // per beam iteration at the HNSW bench shape, about 0.5 ms at 3.35 TB/s)
-// and does 4 flops per element, far below the ridge. What the design does
+// and does 4 flops per element, far below the ridge; int8 blocks halve the
+// bytes of bf16 ones. What the design does
 // about it:
 //   - One block per query, 8 warps. The query row is read once into shared
 //     memory as f32; each warp walks rows j = warp, warp + 8, ... of the
@@ -53,9 +57,12 @@ __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
 }
+__device__ __forceinline__ float to_f32(int8_t v) {
+  return static_cast<float>(v);
+}
 
-// Four packed words as floats: 4 f32, or 8 bf16 (little-endian: the low
-// half of each word is the lower element).
+// Four packed words as floats: 4 f32, 8 bf16 or 16 int8 (little-endian:
+// the low half, or byte, of each word is the lower element).
 __device__ __forceinline__ void unpack(const uint4& w, float* out,
                                        const float*) {
   out[0] = __uint_as_float(w.x); out[1] = __uint_as_float(w.y);
@@ -69,6 +76,15 @@ __device__ __forceinline__ void unpack(const uint4& w, float* out,
     out[2 * i] = __uint_as_float(u[i] << 16);
     out[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
   }
+}
+__device__ __forceinline__ void unpack(const uint4& w, float* out,
+                                       const int8_t*) {
+  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i)
+#pragma unroll
+    for (int b = 0; b < 4; ++b)
+      out[4 * i + b] = static_cast<float>(static_cast<int8_t>(u[i] >> (8 * b)));
 }
 
 template <typename T>
@@ -162,12 +178,13 @@ const char* beam_dots_error_string(int code) {
 }
 
 // q [B, D] f32, idx [B, E] int32, packed [cap, R0, D] (dtype 0: f32,
-// 1: bf16), dots/cn2 [B, E*R0] f32; all contiguous, on card `device`.
+// 1: bf16, 2: int8), dots/cn2 [B, E*R0] f32; all contiguous, on card
+// `device`.
 int beam_dots(const void* q, const void* idx, const void* packed, void* dots,
               void* cn2, int B, int E, int R0, int D, int cap, int dtype,
               int device, void* stream) {
   if (B < 1 || E < 1 || R0 < 1 || D < 1 || cap < 0 || dtype < 0 ||
-      dtype > 1 || (long long)E * R0 > 0x7fffffff)
+      dtype > 2 || (long long)E * R0 > 0x7fffffff)
     return static_cast<int>(cudaErrorInvalidValue);
   // this library links its own CUDA runtime, whose current card is its own
   cudaError_t err = cudaSetDevice(device);
@@ -177,9 +194,11 @@ int beam_dots(const void* q, const void* idx, const void* packed, void* dots,
   float* od = static_cast<float*>(dots);
   float* oc = static_cast<float*>(cn2);
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  err = dtype ? launch<__nv_bfloat16>(qf, ix, packed, od, oc, B, E, R0, D,
-                                      cap, st)
-              : launch<float>(qf, ix, packed, od, oc, B, E, R0, D, cap, st);
+  switch (dtype) {
+    case 0: err = launch<float>(qf, ix, packed, od, oc, B, E, R0, D, cap, st); break;
+    case 1: err = launch<__nv_bfloat16>(qf, ix, packed, od, oc, B, E, R0, D, cap, st); break;
+    default: err = launch<int8_t>(qf, ix, packed, od, oc, B, E, R0, D, cap, st); break;
+  }
   return static_cast<int>(err);
 }
 

@@ -7,7 +7,16 @@ Flat: ``state`` holds ``dim``, ``metric`` (the metric's name),
 ``vectors [hw, d]`` f32, ``valid [hw]`` bool and ``id_of [hw]`` int64 with
 -1 on free slots, where ``hw`` is the store's high watermark. From a
 ``muninn_tpu`` ``FlatIndex`` these are ``np.asarray(store.vectors[:hw])``,
-``np.asarray(store.valid[:hw])`` and ``store._id_of[:hw]``.
+``np.asarray(store.valid[:hw])`` and ``store._id_of[:hw]``. Optional:
+``precision``, ``rescore_r`` and ``proj_dim`` (the search-mode settings
+``save_flat`` writes), and ``proj [d, dp]`` f32, the basis of a built
+``proj_rescored`` shadow (``index._proj[0]`` in ``muninn_tpu``).
+
+Quantized flat: exactly the fields ``muninn_tpu.io.checkpoint.
+save_quantized`` writes, over the store's whole capacity ``cap``:
+``codes [cap, d]`` int8, ``scales [cap]`` f32, ``valid [cap]`` bool,
+``ids [cap]`` int64 (-1 on free slots); scalars ``dim``, ``metric``,
+``high_watermark``, ``count``.
 
 HNSW: exactly the fields ``muninn_tpu.io.checkpoint.save_hnsw`` writes, so
 a JAX checkpoint's ``arrays.npz`` and ``manifest.json`` together are a
@@ -25,7 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from muninn_tpu_torch.index.flat import FlatIndex
+from muninn_tpu_torch.index.flat import FlatIndex, QuantizedFlatIndex
 from muninn_tpu_torch.index.hnsw import HnswIndex
 
 _HNSW_ARRAYS = {
@@ -37,17 +46,28 @@ _HNSW_SCALARS = ("dim", "m", "ef_construction", "entry_point", "max_level",
                  "hi_count", "high_watermark", "count")
 
 
-def flat_index_from_numpy(state: dict, device: str | torch.device = "cpu") -> FlatIndex:
-    """Build a ``FlatIndex`` on ``device`` from ``state``. The slot map, the
-    live count and the high watermark are rebuilt from ``id_of``."""
-    id_of = np.asarray(state["id_of"], np.int64)
-    valid = np.asarray(state["valid"], bool)
-    if not np.array_equal(valid, id_of >= 0):
+def _check_valid(valid: np.ndarray, ids: np.ndarray) -> None:
+    if not np.array_equal(valid, ids >= 0):
         raise ValueError("valid must be True exactly on the slots with an id")
+
+
+def flat_index_from_numpy(state: dict,
+                          device: str | torch.device = "cuda") -> FlatIndex:
+    """Build a ``FlatIndex`` on ``device`` from ``state``. The slot map, the
+    live count and the high watermark are rebuilt from ``id_of``; a carried
+    ``proj`` basis builds the ``proj_rescored`` shadow."""
+    id_of = np.asarray(state["id_of"], np.int64)
+    _check_valid(np.asarray(state["valid"], bool), id_of)
     hw = id_of.shape[0]
     index = FlatIndex(int(state["dim"]), state["metric"],
-                      capacity=max(hw, 1), device=device)
+                      capacity=max(hw, 1), device=device,
+                      precision=str(state.get("precision", "highest")),
+                      proj_dim=int(state.get("proj_dim", 128)))
+    if "rescore_r" in state:
+        index.rescore_r = int(state["rescore_r"])
     index.store.restore(state["vectors"], id_of)
+    if state.get("proj") is not None:
+        index.set_proj_basis(np.asarray(state["proj"], np.float32))
     return index
 
 
@@ -60,11 +80,57 @@ def flat_index_to_numpy(index: FlatIndex) -> dict:
         "vectors": index.store.vectors[:hw].cpu().numpy().copy(),
         "valid": index.store.valid[:hw].cpu().numpy().copy(),
         "id_of": index.store._id_of[:hw].copy(),
+        "precision": index.precision,
+        "rescore_r": index.rescore_r,
+        "proj_dim": index.proj_dim,
+        "proj": (None if index._proj is None
+                 else index._proj[0].cpu().numpy().copy()),
+    }
+
+
+def quantized_index_from_numpy(
+    state: dict, device: str | torch.device = "cuda"
+) -> QuantizedFlatIndex:
+    """Build a ``QuantizedFlatIndex`` on ``device`` from ``state`` (see the
+    module docstring). Its capacity is that of ``state``; the slot map is
+    rebuilt from ``ids``."""
+    codes = np.asarray(state["codes"], np.int8)
+    scales = np.asarray(state["scales"], np.float32)
+    ids = np.asarray(state["ids"], np.int64)
+    cap, dim = codes.shape[0], int(state["dim"])
+    hw, count = int(state["high_watermark"]), int(state["count"])
+    if codes.shape != (cap, dim) or scales.shape != (cap,) or ids.shape != (cap,):
+        raise ValueError(
+            f"codes {codes.shape}, scales {scales.shape} and ids {ids.shape}"
+            f" do not fit dim {dim}"
+        )
+    _check_valid(np.asarray(state["valid"], bool), ids)
+    if (ids[hw:] >= 0).any() or int((ids >= 0).sum()) != count:
+        raise ValueError("ids must hold count ids, all below high_watermark")
+    index = QuantizedFlatIndex(dim, str(state["metric"]), capacity=cap,
+                               device=device)
+    index.store.restore(codes[:hw], ids[:hw], scales=scales[:hw])
+    return index
+
+
+def quantized_index_to_numpy(index: QuantizedFlatIndex) -> dict:
+    """The state of ``index`` as ``save_quantized`` writes it (see the
+    module docstring)."""
+    st = index.store
+    return {
+        "codes": st.vectors.cpu().numpy().copy(),
+        "scales": st.scales.cpu().numpy().copy(),
+        "valid": st.valid.cpu().numpy().copy(),
+        "ids": st._id_of.copy(),
+        "dim": index.dim,
+        "metric": index.metric.value,
+        "high_watermark": st.high_watermark,
+        "count": len(st),
     }
 
 
 def hnsw_index_from_numpy(state: dict,
-                          device: str | torch.device = "cpu") -> HnswIndex:
+                          device: str | torch.device = "cuda") -> HnswIndex:
     """Build an ``HnswIndex`` on ``device`` from ``state`` (see the module
     docstring). Its capacity is that of ``state``; the slot map is rebuilt
     from ``ids``. The packed neighbour table is built as after a bulk
@@ -82,8 +148,7 @@ def hnsw_index_from_numpy(state: dict,
     if hn.ndim != 3 or hn.shape[2] != m:
         raise ValueError(f"hi_neighbors has shape {hn.shape}, want (*, *, {m})")
     live = np.flatnonzero(a["ids"] >= 0)
-    if not np.array_equal(a["valid"], a["ids"] >= 0):
-        raise ValueError("valid must be True exactly on the slots with an id")
+    _check_valid(a["valid"], a["ids"])
     if len(live) != sc["count"] or len(np.unique(a["ids"][live])) != len(live):
         raise ValueError("ids must hold count distinct ids")
     if len(live) and live[-1] >= sc["high_watermark"]:

@@ -14,7 +14,8 @@
   reverse-append pass and pruned back to ``2M`` by distance; upper levels
   are wired exactly, closest ``M`` within each level's population.
 - Search: exact routing over the promoted pool (``flat_topk`` at
-  ``precision="default"``), a level-0 beam over bf16 vectors whose
+  ``precision="default"``), a level-0 beam guided by bf16 vectors, or by
+  int8 ones with one scale per row (``search_quant = "int8"``), whose
   expansions read packed ``[R0, d]`` neighbour blocks through
   ``ops.beam.gather_block_dots``, then an exact f32 rescore of the beam.
   Below ``exact_small_n`` stored rows search is exact ``flat_topk``.
@@ -26,8 +27,8 @@ out-of-range index is a device-side assert on CUDA), so every scatter
 here masks its out-of-range indices out first.
 
 Not ported yet (see ROADMAP.md, queue 1): insert waves into a non-empty
-index, delete and repair, MN-RU prunes, int8 guidance, ``beam_topm``, the
-whole-beam kernel and ``search_degree``.
+index, delete and repair, MN-RU prunes, ``beam_topm``, the whole-beam
+kernel and ``search_degree``.
 """
 
 from __future__ import annotations
@@ -45,6 +46,7 @@ from muninn_tpu_torch.ops.distance import (
     gathered_distances,
     pairwise_distances,
     parse_metric,
+    quantize_rows_int8,
     squared_norms,
 )
 from muninn_tpu_torch.ops.flat_topk import flat_topk
@@ -53,6 +55,7 @@ from muninn_tpu_torch.ops.topk import masked_topk, sorted_topk_unique
 HNSW_MAX_LEVELS = 32  # the reference's cap, src/hnsw_algo.h:14
 _SWEEP_ROWS = 8192    # rows per chunk of the bulk kNN sweep and the prune
 _INF = float("inf")
+SEARCH_QUANTS = ("bf16", "int8")  # the beam's guidance rows
 
 
 def _pow2_pad(members: np.ndarray) -> np.ndarray:
@@ -67,7 +70,7 @@ def _pow2_pad(members: np.ndarray) -> np.ndarray:
 def _beam_search_level0(
     queries: torch.Tensor,      # [B, d]
     entry: torch.Tensor,        # [B] or [B, R] int32 slots, -1 = none
-    vectors: torch.Tensor,      # [cap, d] f32 / bf16: entries and row path
+    vectors: torch.Tensor,      # [cap, d] f32 / bf16 / int8: entries, row path
     neighbors0: torch.Tensor,   # [cap, R0] int32
     metric: Metric,
     ef: int,
@@ -76,6 +79,8 @@ def _beam_search_level0(
     patience: int = 0,
     packed: torch.Tensor | None = None,  # [cap, R0, d] neighbour blocks
     dedup: bool = True,
+    scales: torch.Tensor | None = None,   # [cap] f32 dequant (int8 vectors)
+    pscales: torch.Tensor | None = None,  # [cap, R0] dequant (int8 packed)
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Batched ef-bounded beam search at level 0 (``hnsw.py:172-421``).
 
@@ -88,7 +93,11 @@ def _beam_search_level0(
 
     With ``packed``, candidates are scored from the picks' packed blocks
     through ``gather_block_dots`` (the kernel on CUDA, its plain version
-    on the CPU); without, from rows of ``vectors``. Returns
+    on the CPU); without, from rows of ``vectors``. int8 guidance
+    (``hnsw.py:235-240``, ``:369-373``): rows of int8 ``vectors`` are
+    dequantized by ``scales`` after the gather, and the dots and squared
+    norms of int8 blocks are scaled by each neighbour's ``pscales`` entry
+    (``dots * ps``, ``cn2 * ps * ps``) before the metric epilogue. Returns
     ``(beam_dists [B, ef], beam_slots [B, ef] int32)``, ascending."""
     b = queries.shape[0]
     dev = queries.device
@@ -114,10 +123,16 @@ def _beam_search_level0(
                           dots / torch.clamp(denom, min=_EPS_NORM))
         return 1.0 - sim
 
+    def fetch(idx):
+        v = vectors[idx]
+        if scales is not None:
+            v = v.float() * scales[idx][..., None]
+        return v
+
     if entry.ndim == 1:
         entry = entry[:, None]
     r_ent = entry.shape[1]
-    e_d = gathered_distances(qf, vectors[entry.clamp(min=0).long()], metric)
+    e_d = gathered_distances(qf, fetch(entry.clamp(min=0).long()), metric)
     beam_d = torch.full((b, ef), _INF, device=dev)
     beam_i = torch.full((b, ef), -1, dtype=torch.int32, device=dev)
     beam_d[:, :r_ent] = torch.where(entry >= 0, e_d, _INF)
@@ -155,9 +170,13 @@ def _beam_search_level0(
             dots, cn2 = gather_block_dots(
                 qf, torch.where(do, pick_i, -1), packed
             )
+            if pscales is not None:
+                ps = pscales[pick_i.clamp(min=0).long()].reshape(b, c)
+                dots = dots * ps
+                cn2 = cn2 * ps * ps
             nd = packed_epilogue(dots, cn2)
         else:
-            nd = gathered_distances(qf, vectors[nbrs.clamp(min=0).long()],
+            nd = gathered_distances(qf, fetch(nbrs.clamp(min=0).long()),
                                     metric)
         nd = torch.where(nbrs >= 0, nd, _INF)
 
@@ -188,7 +207,7 @@ def _search_topk_fused(
     pool: torch.Tensor,        # [Mp] promoted slots, -1 pad
     pv: torch.Tensor,          # [Mp, d] pooled f32 vectors
     vectors: torch.Tensor,     # [cap, d] f32 store
-    v16: torch.Tensor,         # [cap, d] bf16 shadow for the beam
+    v16: torch.Tensor,         # [cap, d] bf16 / int8 shadow for the beam
     neighbors0: torch.Tensor,  # [cap, R0]
     valid: torch.Tensor,       # [cap] bool
     metric: Metric,
@@ -200,15 +219,18 @@ def _search_topk_fused(
     packed: torch.Tensor | None = None,
     dedup: bool = True,
     max_iters: int = 0,
+    scales: torch.Tensor | None = None,
+    pscales: torch.Tensor | None = None,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The query path (``hnsw.py:429-473``): routing over the promoted pool,
-    bf16 beam, soft-delete filter, exact f32 rescore, top-k."""
+    bf16 or int8 beam, soft-delete filter, exact f32 rescore, top-k."""
     _, sel = flat_topk(q, pv, r, metric=metric, precision="default",
                        corpus_valid=pool >= 0)
     entries = torch.where(sel >= 0, pool[sel.clamp(min=0).long()], -1)
     _, beam_i = _beam_search_level0(
         q, entries, v16, neighbors0, metric, ef, expand,
         max_iters=max_iters, patience=patience, packed=packed, dedup=dedup,
+        scales=scales, pscales=pscales,
     )
     ok = (beam_i >= 0) & valid[beam_i.clamp(min=0).long()]
     beam_i = torch.where(ok, beam_i, -1)
@@ -324,8 +346,10 @@ class HnswIndex:
     ``search(queries, k, ef_search)`` with ``ef_search`` defaulting to
     ``2 * k`` (``src/hnsw_vtab.c:586-619``). Knobs of this path, as in the
     JAX package: ``expand``, ``wave_size``, ``route_entries``,
-    ``build_precision``, ``beam_patience``, ``beam_max_iters``,
-    ``beam_dedup``, ``pack_budget_bytes``, ``exact_small_n``.
+    ``build_precision``, ``search_quant`` ("bf16" or "int8" beam
+    guidance), ``beam_patience``, ``beam_max_iters``, ``beam_dedup``,
+    ``pack_budget_bytes``, ``exact_small_n``. ``device`` is the card unless
+    ``device="cpu"``.
     """
 
     def __init__(
@@ -339,14 +363,14 @@ class HnswIndex:
         seed: int = 42,
         expand: int = 4,
         wave_size: int = 1024,
-        device: str | torch.device = "cpu",
+        device: str | torch.device = "cuda",
     ):
         if m < 2:
             raise ValueError("m must be >= 2")
         self.params = HnswParams(int(dim), parse_metric(metric), int(m),
                                  int(ef_construction))
-        self.device = torch.device(device)
-        self.store = VectorStore(dim, capacity, device=self.device)
+        self.store = VectorStore(dim, capacity, device=device)
+        self.device = self.store.device
         self.m = int(m)
         self.m0 = 2 * int(m)  # M_max0 = 2*M, src/hnsw_algo.c:188
         self.ef_construction = int(ef_construction)
@@ -374,20 +398,27 @@ class HnswIndex:
         self.max_level = -1
         self.route_entries = 8  # beam seeds from the exact router
         self.build_precision = "default"  # the bulk kNN sweep's flat_topk
+        # beam guidance: "bf16" rows, or "int8" rows with one scale per row
+        # (a quarter of the f32 bytes); the exact rescore stays f32
+        self.search_quant = "bf16"
         self.beam_patience = 0    # 0: the reference's max(ef/4, 10)
         self.beam_max_iters = 0   # 0: ceil(ef/expand) + 1; < 0: converge
         self.beam_dedup = True
-        # the packed [cap, R0, d] bf16 neighbour table: built at the first
-        # search after a bulk build on a CUDA device when it fits the
-        # budget; on the CPU only through pack_neighbors()
+        # the packed [cap, R0, d] bf16 (or int8, with [cap, R0] scales)
+        # neighbour table: built at the first search after a bulk build on
+        # a CUDA device when it fits the budget; on the CPU only through
+        # pack_neighbors()
         self.pack_budget_bytes = 4 << 30
         # at or below this many stored rows, search is exact flat_topk
         self.exact_small_n = 8192
         self._pool_cache: torch.Tensor | None = None
         self._pool_dirty = True
         self._packed: torch.Tensor | None = None
+        self._packed_scales: torch.Tensor | None = None
+        self._packed_quant = "bf16"  # the guidance the packed table holds
         self._packed_auto = True
         self._v16: torch.Tensor | None = None
+        self._v8: tuple[torch.Tensor, torch.Tensor] | None = None
         self._pool_vecs_cache: torch.Tensor | None = None
 
     @property
@@ -479,11 +510,27 @@ class HnswIndex:
         d = d.cpu().numpy()
         return (ids[0], d[0]) if single else (ids, d)
 
+    def _int8_guidance(self) -> bool:
+        """Whether the beam is guided by int8 rows; a ``search_quant``
+        outside ``SEARCH_QUANTS`` raises."""
+        if self.search_quant not in SEARCH_QUANTS:
+            raise ValueError(
+                f"search_quant must be one of {SEARCH_QUANTS}, got"
+                f" {self.search_quant!r}"
+            )
+        return self.search_quant == "int8"
+
     def _search_topk_chunked(self, q: torch.Tensor, k: int, ef: int):
+        int8 = self._int8_guidance()
         pool = self._routing_pool()
         pv = self._pool_vecs(pool)
-        v16 = self._vecs16()
+        scales = None
+        if int8:
+            v16, scales = self._vecs8()
+        else:
+            v16 = self._vecs16()
         packed = self._maybe_packed()
+        pscales = self._packed_scales if packed is not None else None
         r = min(self.route_entries, ef)
         if self.beam_max_iters == 0:
             mi = -(-ef // max(self.expand, 1)) + 1  # about ef expansions
@@ -496,7 +543,8 @@ class HnswIndex:
             return _search_topk_fused(
                 qc, pool, pv, self.store.vectors, v16, self.neighbors0,
                 self.store.valid, self.metric, k, ef, self.expand, r,
-                self.beam_patience, packed, self.beam_dedup, mi,
+                self.beam_patience, packed, self.beam_dedup, mi, scales,
+                pscales,
             )
 
         return self._run_chunked(q, one)
@@ -520,6 +568,13 @@ class HnswIndex:
             self._v16 = self.store.vectors.bfloat16()
         return self._v16
 
+    def _vecs8(self) -> tuple[torch.Tensor, torch.Tensor]:
+        """The int8 guidance shadow: rows quantized as stored (not
+        normalised), one f32 scale per row (``hnsw.py:979-982``)."""
+        if self._v8 is None:
+            self._v8 = quantize_rows_int8(self.store.vectors)
+        return self._v8
+
     def _pool_vecs(self, pool: torch.Tensor) -> torch.Tensor:
         if self._pool_vecs_cache is None:
             self._pool_vecs_cache = self.store.vectors[pool.clamp(min=0).long()]
@@ -527,32 +582,45 @@ class HnswIndex:
 
     def _invalidate_search_caches(self) -> None:
         self._v16 = None
+        self._v8 = None
         self._pool_vecs_cache = None
         self._packed = None
+        self._packed_scales = None
         self._packed_auto = False  # a bulk build turns it back on
 
     def pack_neighbors(self) -> None:
-        """(Re)build the packed neighbour table, on any device, and turn
-        packing back on."""
+        """(Re)build the packed neighbour table for the current
+        ``search_quant``, on any device, and turn packing back on."""
         self._packed_auto = True
         self._packed = None
+        self._packed_scales = None
         self._maybe_packed(force=True)
 
     def _maybe_packed(self, force: bool = False) -> torch.Tensor | None:
-        """The packed ``[cap, R0, d]`` bf16 table ``v16[neighbors0]``: built
-        on a CUDA device when packing is on, on the CPU only when
-        ``force``d; None over ``pack_budget_bytes``."""
-        if self._packed is not None:
+        """The packed ``[cap, R0, d]`` table of the beam's guidance,
+        ``v16[neighbors0]`` (bf16), or ``v8[neighbors0]`` (int8) with the
+        neighbours' scales in ``_packed_scales [cap, R0]``; rebuilt when
+        ``search_quant`` changed (``hnsw.py:1007-1032``). Built on a CUDA
+        device when packing is on, on the CPU only when ``force``d; None
+        over ``pack_budget_bytes``."""
+        int8 = self._int8_guidance()
+        if self._packed is not None and self._packed_quant == self.search_quant:
             return self._packed
-        if not (self._packed_auto or force):
+        if self._packed is None and not (self._packed_auto or force):
             return None
-        need = self.store.capacity * self.m0 * self.dim * 2
+        need = self.store.capacity * self.m0 * self.dim * (1 if int8 else 2)
         if need > self.pack_budget_bytes:
             return None
         if self.device.type == "cpu" and not force:
             return None  # CPU: keep the row path exercised
         # one gather of the whole table, not one per row
-        self._packed = self._vecs16()[self.neighbors0.clamp(min=0).long()]
+        nb = self.neighbors0.clamp(min=0).long()
+        if int8:
+            vi, sc = self._vecs8()
+            self._packed, self._packed_scales = vi[nb], sc[nb]
+        else:
+            self._packed, self._packed_scales = self._vecs16()[nb], None
+        self._packed_quant = self.search_quant
         return self._packed
 
     def _routing_pool(self) -> torch.Tensor | None:

@@ -1,10 +1,16 @@
 """Vector store with external-id mapping, the PyTorch port of
 ``muninn_tpu/index/store.py``.
 
-A padded ``float32[cap, d]`` tensor and a validity mask on the index's
-device, with the int64 external-id <-> int32 slot map kept on the host.
-Appends and deletes update the device tensors in place (slice and index
-assignment); capacity grows by doubling, rounded to ``pad_multiple``.
+A padded ``[cap, d]`` tensor (``float32``, or ``int8`` with one f32 scale
+per row in ``scales``) and a validity mask on the
+index's device, with the int64 external-id <-> int32 slot map kept on the
+host. Appends and deletes update the device tensors in place (slice and
+index assignment); capacity grows by doubling, rounded to
+``pad_multiple``.
+
+The device defaults to the card, ``"cuda"``; the CPU is used only when a
+caller passes ``device="cpu"``. Without a card the default raises rather
+than falling back.
 """
 
 from __future__ import annotations
@@ -17,18 +23,39 @@ def _round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
 
 
+def resolve_device(device: str | torch.device) -> torch.device:
+    """``device`` as a ``torch.device``; a CUDA device without a usable card
+    raises, with the way to ask for the CPU."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(
+            f"device {str(device)!r}: no CUDA device is available. The index"
+            " runs on the card by default; pass device='cpu' to run on the"
+            " CPU"
+        )
+    return dev
+
+
 class VectorStore:
     """Append-oriented vector storage. Slots are dense int32; external ids
     are arbitrary int64."""
 
     def __init__(self, dim: int, capacity: int = 1024, pad_multiple: int = 1024,
-                 *, device: str | torch.device = "cpu"):
+                 *, device: str | torch.device = "cuda",
+                 dtype: torch.dtype = torch.float32):
+        if dtype not in (torch.float32, torch.int8):
+            raise ValueError(f"store dtype must be float32 or int8, got {dtype}")
         self.dim = int(dim)
         self.pad_multiple = int(pad_multiple)
-        self.device = torch.device(device)
+        self.device = resolve_device(device)
+        self.dtype = dtype
         capacity = _round_up(max(int(capacity), pad_multiple), pad_multiple)
-        self.vectors = torch.zeros((capacity, self.dim), dtype=torch.float32,
+        self.vectors = torch.zeros((capacity, self.dim), dtype=dtype,
                                    device=self.device)
+        # per-row dequantization scales: int8 storage always carries them
+        self.scales = (torch.zeros((capacity,), dtype=torch.float32,
+                                   device=self.device)
+                       if dtype == torch.int8 else None)
         self.valid = torch.zeros((capacity,), dtype=torch.bool,
                                  device=self.device)
         self._slot_of: dict[int, int] = {}
@@ -53,12 +80,15 @@ class VectorStore:
         while new_cap < need:
             new_cap *= 2
         new_cap = _round_up(new_cap, self.pad_multiple)
-        vectors = torch.zeros((new_cap, self.dim), dtype=torch.float32,
+        vectors = torch.zeros((new_cap, self.dim), dtype=self.dtype,
                               device=self.device)
         vectors[:cap] = self.vectors
         valid = torch.zeros((new_cap,), dtype=torch.bool, device=self.device)
         valid[:cap] = self.valid
         self.vectors, self.valid = vectors, valid
+        if self.scales is not None:
+            self.scales = torch.nn.functional.pad(self.scales,
+                                                  (0, new_cap - cap))
         self._id_of = np.pad(self._id_of, (0, new_cap - cap), constant_values=-1)
 
     def reserve(self, n: int) -> None:
@@ -94,7 +124,7 @@ class VectorStore:
         """Append a batch. ``ids`` int64 [n]; returns the assigned slots,
         int32 [n]. Duplicate ids raise ValueError."""
         ids = np.asarray(ids, np.int64)
-        vecs = torch.as_tensor(vectors, dtype=torch.float32)
+        vecs = torch.as_tensor(vectors, dtype=self.dtype)
         vecs = vecs.reshape(len(ids), self.dim)
         slots = self.register(ids)
         if len(slots):
@@ -124,17 +154,28 @@ class VectorStore:
                                        device=self.device)] = False
         return slots
 
-    def restore(self, vectors: np.ndarray, id_of: np.ndarray) -> None:
-        """Replace the contents with ``vectors [hw, d]`` and ``id_of [hw]``
-        (-1 on free slots): the slot map, live count, validity and high
-        watermark are rebuilt from ``id_of``."""
-        vectors = np.asarray(vectors, np.float32)
+    def restore(self, vectors: np.ndarray, id_of: np.ndarray,
+                scales: np.ndarray | None = None) -> None:
+        """Replace the contents with ``vectors [hw, d]`` (and, in an int8
+        store, ``scales [hw]``) and ``id_of [hw]`` (-1 on free
+        slots): the slot map, live count, validity and high watermark are
+        rebuilt from ``id_of``."""
+        vectors = torch.tensor(np.asarray(vectors), dtype=self.dtype)
         id_of = np.asarray(id_of, np.int64)
         hw = id_of.shape[0]
-        if vectors.shape != (hw, self.dim):
+        if tuple(vectors.shape) != (hw, self.dim):
             raise ValueError(
-                f"vectors have shape {vectors.shape}, want ({hw}, {self.dim})"
+                f"vectors have shape {tuple(vectors.shape)}, want"
+                f" ({hw}, {self.dim})"
             )
+        if (scales is None) != (self.scales is None):
+            raise ValueError("scales are given exactly for an int8 store")
+        if scales is not None:
+            scales = torch.as_tensor(np.asarray(scales, np.float32))
+            if tuple(scales.shape) != (hw,):
+                raise ValueError(
+                    f"scales have shape {tuple(scales.shape)}, want ({hw},)"
+                )
         live = np.flatnonzero(id_of >= 0)
         if len(np.unique(id_of[live])) != len(live):
             raise ValueError("duplicate id in id_of")
@@ -144,7 +185,10 @@ class VectorStore:
         self.reserve(hw)
         self.vectors.zero_()
         self.valid.zero_()
-        self.vectors[:hw] = torch.tensor(vectors, device=self.device)
+        self.vectors[:hw] = vectors.to(self.device)
+        if scales is not None:
+            self.scales.zero_()
+            self.scales[:hw] = scales.to(self.device)
         self.valid[:hw] = torch.tensor(id_of >= 0, device=self.device)
         self._id_of[:hw] = id_of
         self._slot_of = dict(zip(id_of[live].tolist(), live.tolist()))

@@ -8,7 +8,9 @@ squared norm; the metric epilogue stays with the caller
 (``index/hnsw.py``). The kernel (``csrc/beam_dots.cu``) replaces
 ``_beam_dots_kernel``; the plain version ``gather_block_dots_plain``
 gathers the blocks and reduces them with exact f32 products, as JAX's
-packed, not fused branch does (``hnsw.py:375-384``).
+packed, not fused branch does (``hnsw.py:375-384``). Blocks are f32, bf16
+or int8; int8 blocks (HNSW int8 guidance) are multiplied as stored, and the
+caller scales the results by each neighbour's dequantization scale.
 
 ``gather_block_dots`` picks the path by the tensors' device: CPU tensors
 go to the plain version, CUDA tensors to the kernel. On a CUDA tensor there
@@ -26,7 +28,7 @@ import torch
 from muninn_tpu_torch.ops import _build
 from muninn_tpu_torch.ops.distance import batched_f32_dots, squared_norms
 
-_DTYPE = {torch.float32: 0, torch.bfloat16: 1}
+_DTYPE = {torch.float32: 0, torch.bfloat16: 1, torch.int8: 2}
 
 
 def _check(queries: torch.Tensor, idx: torch.Tensor,
@@ -87,7 +89,8 @@ def gather_block_dots_cuda(
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the gather + dots kernel. Takes contiguous CUDA tensors on one
     card: queries f32, idx int32 with every live pick below ``cap``, packed
-    bf16 or f32. Raises on anything else, and on a failed build or launch.
+    f32, bf16 or int8. Raises on anything else, and on a failed build or
+    launch.
     A pick at or above ``cap`` reads nothing and writes NaN."""
     _check(queries, idx, packed)
     tensors = {"queries": queries, "idx": idx, "packed": packed}
@@ -110,7 +113,8 @@ def gather_block_dots_cuda(
         )
     if packed.dtype not in _DTYPE:
         raise ValueError(
-            f"gather_block_dots_cuda takes bf16 or f32 packed, got {packed.dtype}"
+            "gather_block_dots_cuda takes f32, bf16 or int8 packed, got"
+            f" {packed.dtype}"
         )
     b, e = idx.shape
     cap, r0, d = packed.shape
@@ -131,7 +135,8 @@ def gather_block_dots_cuda(
             f"beam_dots kernel launch failed: CUDA error {rc}"
             f" ({lib.beam_dots_error_string(rc).decode()})"
         )
-    _build.LAUNCHES["beam_dots"] += 1
+    _build.LAUNCHES["beam_dots_int8" if packed.dtype == torch.int8
+                    else "beam_dots"] += 1
     return dots, cn2
 
 

@@ -67,6 +67,41 @@ def exact_f32_dots(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
         return q @ c.T
 
 
+def unit_rows(x: torch.Tensor) -> torch.Tensor:
+    """Rows of ``x`` (last axis) divided by their L2 norm, guarded by
+    ``_EPS_NORM``: ``v / max(|v|, 1e-30)`` as the JAX package writes it."""
+    return x / torch.clamp(torch.sqrt(squared_norms(x))[..., None],
+                           min=_EPS_NORM)
+
+
+def quantize_rows_int8(
+    v: torch.Tensor, normalize: bool = False
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Symmetric per-row int8 quantization, the contract of
+    ``muninn_tpu/ops/distance.py`` ``quantize_rows_int8``: one scale
+    ``s = max|row| / 127`` per row (last axis; leading axes pass through)
+    and values ``clip(round(v / max(s, 1e-30)), -127, 127)``, rounded half
+    to even. ``normalize=True`` L2-normalises the rows first. Returns
+    ``(int8 rows, f32 scales [leading axes])``."""
+    v = v.float()
+    if normalize:
+        v = unit_rows(v)
+    sc = torch.amax(v.abs(), dim=-1) / 127.0
+    vi = torch.clamp(torch.round(v / torch.clamp(sc[..., None], min=_EPS_NORM)),
+                     -127, 127).to(torch.int8)
+    return vi, sc
+
+
+def int8_dots(qi: torch.Tensor, ci: torch.Tensor) -> torch.Tensor:
+    """``qi @ ci.T`` of int8 rows as f32, exactly as int32 sums rounded once
+    to f32. Each product is at most 127^2, so up to d = 1040 every partial
+    sum is an integer below 2^24, exact in f32 in any order (TF32 off);
+    above that the sums are taken in float64."""
+    if qi.shape[-1] <= 1040:
+        return exact_f32_dots(qi.float(), ci.float())
+    return (qi.double() @ ci.double().T).float()
+
+
 def batched_f32_dots(q: torch.Tensor, c: torch.Tensor) -> torch.Tensor:
     """``[B, d]`` x ``[B, C, d]`` -> ``[B, C]`` dots in full float32, TF32
     off on the card."""

@@ -1,14 +1,22 @@
 """Smallest-k over a corpus: a hand-written CUDA kernel and its plain
 PyTorch version.
 
-Port of ``muninn_tpu/ops/pallas_flat.py`` ``flat_topk`` in its float forms:
-``precision="highest"`` (exact f32 operands) and ``"default"`` /
-``"bfloat16"`` (operands rounded to bf16, products summed in f32: what one
-bf16 MXU pass computes on the TPU). The kernel (``csrc/flat_topk.cu``)
-replaces ``_flat_topk_kernel``'s float branch; the plain version
-``flat_topk_plain`` mirrors ``_xla_topk``.
+Port of ``muninn_tpu/ops/pallas_flat.py``:
 
-``flat_topk`` picks the path by the tensors' device: CPU tensors go to the
+- ``flat_topk`` in its float forms, ``precision="highest"`` (exact f32
+  operands) and ``"default"`` / ``"bfloat16"`` (operands rounded to bf16,
+  products summed in f32: what one bf16 MXU pass computes on the TPU);
+- its int8 form: ``flat_topk_int8`` over an int8-stored corpus, and
+  ``flat_topk(precision="int8")``, which quantizes both sides per call;
+- the two-tier searches on top of it, ``flat_topk_int8_rescored`` and
+  ``flat_topk_proj_rescored`` (an int8 retrieve of ``r`` candidates, then an
+  exact f32 rescore), and ``proj_basis``.
+
+The kernel (``csrc/flat_topk.cu``) replaces both branches of
+``_flat_topk_kernel``; the plain versions ``flat_topk_plain`` and
+``flat_topk_int8_plain`` mirror ``_xla_topk``.
+
+The wrappers pick the path by the tensors' device: CPU tensors go to the
 plain version, CUDA tensors to the kernel. On a CUDA tensor there is no
 fallback: no ``nvcc``, a failed build or a refused launch raises.
 """
@@ -24,14 +32,19 @@ from muninn_tpu_torch.ops.distance import (
     _EPS_NORM,
     Metric,
     exact_f32_dots,
+    gathered_distances,
+    int8_dots,
     parse_metric,
+    quantize_rows_int8,
     squared_norms,
+    unit_rows,
 )
-from muninn_tpu_torch.ops.topk import masked_topk, merge_topk
+from muninn_tpu_torch.ops.topk import masked_topk, merge_topk, sorted_topk_unique
 
 MAX_K = 1024  # the kernel's largest k; csrc/flat_topk.cu kMaxK
 _CHUNK = 65536  # corpus rows per product in the plain version: [B, _CHUNK] peak
 _MODE = {Metric.L2: 0, Metric.COSINE: 1, Metric.INNER_PRODUCT: 2}
+_OP_F32, _OP_BF16, _OP_INT8 = 0, 1, 2  # csrc/flat_topk.cu operand modes
 _INF = float("inf")
 
 
@@ -44,11 +57,6 @@ def bf16_operands(precision: str) -> bool:
         return False
     if precision in ("default", "bfloat16"):
         return True
-    if precision == "int8":
-        raise NotImplementedError(
-            "precision='int8' is not ported yet (see ROADMAP.md, queue 1,"
-            " and queue 2, row 2)"
-        )
     raise ValueError(
         "precision must be 'highest', 'default', 'bfloat16' or 'int8', got"
         f" {precision!r}"
@@ -70,11 +78,6 @@ def _penalty_row(
     return torch.where(
         corpus_valid.to(torch.bool), base, torch.full_like(base, _INF)
     )
-
-
-def _unit_rows(x: torch.Tensor) -> torch.Tensor:
-    return x / torch.clamp(torch.linalg.norm(x, dim=1, keepdim=True),
-                           min=_EPS_NORM)
 
 
 def _inv_norms(x: torch.Tensor) -> torch.Tensor:
@@ -104,8 +107,14 @@ def flat_topk_plain(
 
     ``precision="default"``/``"bfloat16"``: the unit query and the raw
     corpus row are rounded to bf16 and multiplied in exact f32, cosine
-    scales by 1/|c| of the f32 row, as the kernel does."""
+    scales by 1/|c| of the f32 row, as the kernel does. ``"int8"``: both
+    sides quantized per call, then ``flat_topk_int8_plain``."""
     metric = parse_metric(metric)
+    if precision == "int8":
+        return flat_topk_int8_plain(
+            queries, *_quantized_corpus(corpus, metric), k, metric=metric,
+            corpus_valid=corpus_valid,
+        )
     bf16 = bf16_operands(precision)
     q = queries.float()
     c = corpus.float()
@@ -113,11 +122,11 @@ def flat_topk_plain(
     if metric is Metric.COSINE:
         # pre-normalise so the cosine distance is 1 - dot; the bf16 mode
         # rounds the raw corpus row and folds 1/|c| in after the product
-        q = _unit_rows(q)
+        q = unit_rows(q)
         if bf16:
             cs = _inv_norms(c)
         else:
-            c = _unit_rows(c)
+            c = unit_rows(c)
     cp = _penalty_row(c, metric, corpus_valid)
     qn = squared_norms(q)[:, None]
     b, n = q.shape[0], c.shape[0]
@@ -151,8 +160,8 @@ def _library() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.library("flat_topk")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.flat_topk_f32.argtypes = [ptr] * 7 + [i32] * 8 + [ptr]
-        lib.flat_topk_f32.restype = i32
+        lib.flat_topk_launch.argtypes = [ptr] * 7 + [i32] * 8 + [ptr]
+        lib.flat_topk_launch.restype = i32
         lib.flat_topk_splits.argtypes = [i32] * 5
         lib.flat_topk_splits.restype = i32
         lib.flat_topk_max_k.argtypes = []
@@ -178,13 +187,17 @@ def flat_topk_cuda(
     precision: str = "highest",
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the fused distance + top-k kernel. CUDA tensors only; raises
-    on anything else, and on a failed build or launch."""
+    on anything else, and on a failed build or launch. ``"int8"`` quantizes
+    both sides per call, then runs ``flat_topk_int8_cuda``."""
     metric = parse_metric(metric)
-    bf16 = bf16_operands(precision)
-    if not 1 <= k <= MAX_K:
-        raise ValueError(
-            f"k={k}: the flat_topk CUDA kernel serves 1 <= k <= {MAX_K}"
+    if precision == "int8":
+        _check_cuda(queries, corpus, "flat_topk_cuda")
+        return flat_topk_int8_cuda(
+            queries, *_quantized_corpus(corpus, metric), k, metric=metric,
+            corpus_valid=corpus_valid,
         )
+    bf16 = bf16_operands(precision)
+    _check_k(k)
     # the kernel reads the corpus in place; converting it here would copy
     # the whole corpus on every search
     if corpus.dtype != torch.float32 or not corpus.is_contiguous():
@@ -192,31 +205,15 @@ def flat_topk_cuda(
             "flat_topk_cuda takes a contiguous float32 corpus, got"
             f" {corpus.dtype}{'' if corpus.is_contiguous() else ', strided'}"
         )
-    if not (queries.is_cuda and corpus.is_cuda):
-        raise ValueError(
-            "flat_topk_cuda takes CUDA tensors, got queries on"
-            f" {queries.device} and corpus on {corpus.device}"
-        )
-    if queries.device != corpus.device:
-        raise ValueError(
-            f"queries on {queries.device} but corpus on {corpus.device}"
-        )
-    b, d = queries.shape
-    n, dc = corpus.shape
-    if dc != d:
-        raise ValueError(f"query dim {d} != corpus dim {dc}")
-    if corpus_valid is not None and tuple(corpus_valid.shape) != (n,):
-        raise ValueError(
-            f"corpus_valid has shape {tuple(corpus_valid.shape)}, want ({n},)"
-        )
+    _check_cuda(queries, corpus, "flat_topk_cuda")
+    b, n = _check_shapes(queries, corpus, corpus_valid)
     dev = queries.device
     if b == 0:
-        return (torch.empty((0, k), dtype=torch.float32, device=dev),
-                torch.empty((0, k), dtype=torch.int32, device=dev))
+        return _empty(k, dev)
     c = corpus
     q = queries.float()
     if metric is Metric.COSINE:
-        q = _unit_rows(q)
+        q = unit_rows(q)
         cs = _inv_norms(c)
     else:
         cs = torch.empty(0, dtype=torch.float32, device=dev)
@@ -225,8 +222,57 @@ def flat_topk_cuda(
     cp = _penalty_row(c, metric, corpus_valid).contiguous()
     cs = cs.contiguous()
 
+    op = _OP_BF16 if bf16 else _OP_F32
+    return _launch(q, c, qn, cp, cs, k, _MODE[metric], op, "flat_topk")
+
+
+def _check_k(k: int) -> None:
+    if not 1 <= k <= MAX_K:
+        raise ValueError(
+            f"k={k}: the flat_topk CUDA kernel serves 1 <= k <= {MAX_K}"
+        )
+
+
+def _check_cuda(queries: torch.Tensor, corpus: torch.Tensor,
+                name: str) -> None:
+    if not (queries.is_cuda and corpus.is_cuda):
+        raise ValueError(
+            f"{name} takes CUDA tensors, got queries on"
+            f" {queries.device} and corpus on {corpus.device}"
+        )
+    if queries.device != corpus.device:
+        raise ValueError(
+            f"queries on {queries.device} but corpus on {corpus.device}"
+        )
+
+
+def _check_shapes(queries: torch.Tensor, corpus: torch.Tensor,
+                  corpus_valid: torch.Tensor | None) -> tuple[int, int]:
+    b, d = queries.shape
+    n, dc = corpus.shape
+    if dc != d:
+        raise ValueError(f"query dim {d} != corpus dim {dc}")
+    if corpus_valid is not None and tuple(corpus_valid.shape) != (n,):
+        raise ValueError(
+            f"corpus_valid has shape {tuple(corpus_valid.shape)}, want ({n},)"
+        )
+    return b, n
+
+
+def _empty(k: int, dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
+    return (torch.empty((0, k), dtype=torch.float32, device=dev),
+            torch.empty((0, k), dtype=torch.int32, device=dev))
+
+
+def _launch(q, c, qn, cp, cs, k: int, mode: int, op: int, name: str):
+    """One launch of the kernel in operand mode ``op`` over contiguous CUDA
+    operands, then the merge of the per-split partials by their kernel
+    values. Counts the launch under ``LAUNCHES[name]``."""
+    b, d = q.shape
+    n = c.shape[0]
+    dev = q.device
     lib = _library()
-    splits = lib.flat_topk_splits(b, n, k, int(bf16), dev.index)
+    splits = lib.flat_topk_splits(b, n, k, op, dev.index)
     if splits < 1:
         raise RuntimeError(
             f"flat_topk: querying {dev} failed: CUDA error {-splits}"
@@ -235,17 +281,17 @@ def flat_topk_cuda(
     out_d = torch.empty((splits, b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((splits, b, k), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.flat_topk_f32(
+    rc = lib.flat_topk_launch(
         q.data_ptr(), c.data_ptr(), qn.data_ptr(), cp.data_ptr(),
         cs.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
-        b, n, d, k, _MODE[metric], int(bf16), splits, dev.index, stream,
+        b, n, d, k, mode, op, splits, dev.index, stream,
     )
     if rc != 0:
         raise RuntimeError(
             f"flat_topk kernel launch failed: CUDA error {rc}"
             f" ({lib.flat_topk_error_string(rc).decode()})"
         )
-    _build.LAUNCHES["flat_topk"] += 1
+    _build.LAUNCHES[name] += 1
     if splits == 1:
         return out_d[0], out_i[0]
     # merge the per-split sorted partials: [B, S*k] -> [B, k]
@@ -270,7 +316,9 @@ def flat_topk(
 
     ``corpus_valid``: optional bool ``[N]``; False rows never appear in
     results. ``precision``: "highest" (exact f32), "default" or
-    "bfloat16" (bf16-rounded operands, f32 sums); "int8" is not ported.
+    "bfloat16" (bf16-rounded operands, f32 sums), or "int8" (both sides
+    quantized per call, ``flat_topk_int8``'s distances; cosine and inner
+    product only).
 
     CPU tensors run ``flat_topk_plain``; CUDA tensors run the kernel, which
     serves ``k <= MAX_K``.
@@ -284,3 +332,253 @@ def flat_topk(
         queries, corpus, k, metric=metric, corpus_valid=corpus_valid,
         precision=precision,
     )
+
+
+# ───────────────────────── int8 ─────────────────────────
+
+
+def _quantized_corpus(corpus: torch.Tensor, metric: Metric):
+    """The corpus as ``flat_topk(precision="int8")`` quantizes it per call
+    (``pallas_flat.py:302-311``): cosine rows normalised first."""
+    if metric is Metric.L2:
+        raise ValueError("precision='int8' supports cosine/inner_product")
+    return quantize_rows_int8(corpus, normalize=metric is Metric.COSINE)
+
+
+def _int8_queries(queries: torch.Tensor, metric: Metric):
+    """Unit queries for cosine, then per-row int8: ``(qi int8 [B, d],
+    qs f32 [B])``, as ``flat_topk_int8`` prepares them (``:416-422``)."""
+    if metric is Metric.L2:
+        raise ValueError("int8 storage supports cosine/inner_product")
+    q = queries.float()
+    if metric is Metric.COSINE:
+        q = unit_rows(q)
+    return quantize_rows_int8(q)
+
+
+def _int8_penalty(n: int, corpus_valid: torch.Tensor | None,
+                  device: torch.device) -> torch.Tensor:
+    cp = torch.zeros(n, dtype=torch.float32, device=device)
+    if corpus_valid is None:
+        return cp
+    return torch.where(corpus_valid.to(torch.bool), cp, _INF)
+
+
+def _int8_emit(sd: torch.Tensor, si: torch.Tensor, qs: torch.Tensor,
+               metric: Metric) -> tuple[torch.Tensor, torch.Tensor]:
+    """Rescale the k rank-only survivors to distances, ``base + qs * sd``
+    with base 1 for cosine and 0 for inner product (``pallas_flat.py:171-
+    179``). A masked slot is decided from ``sd`` before the rescale: an
+    all-zero query has ``qs = 0``, and ``0 * inf`` would be NaN."""
+    base = 1.0 if metric is Metric.COSINE else 0.0
+    masked = torch.isinf(sd)
+    vals = base + qs[:, None] * sd
+    return (torch.where(masked, _INF, vals),
+            torch.where(masked, -1, si))
+
+
+def flat_topk_int8_plain(
+    queries: torch.Tensor,
+    corpus_i8: torch.Tensor,
+    corpus_scale: torch.Tensor,
+    k: int,
+    *,
+    metric: Metric | str = Metric.COSINE,
+    corpus_valid: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The int8 kernel's arithmetic in plain PyTorch, as ``_xla_topk``'s int8
+    branch computes it (``pallas_flat.py:204-211``, ``:231-237``): exact
+    integer dots (``int8_dots``), the rank-only tile ``cp - f32(dot) * cs``
+    (each step rounded), ``masked_topk``/``merge_topk`` over ``_CHUNK``-row
+    chunks, then ``_int8_emit``. Returns ``(dists [B, k] f32, ids [B, k]
+    int32)`` sorted ascending, ``(inf, -1)`` where fewer than k rows are
+    live."""
+    metric = parse_metric(metric)
+    qi, qs = _int8_queries(queries, metric)
+    cs = corpus_scale.float()
+    n = corpus_i8.shape[0]
+    cp = _int8_penalty(n, corpus_valid, qi.device)
+    b = qi.shape[0]
+    bd = torch.full((b, k), _INF, dtype=torch.float32, device=qi.device)
+    bi = torch.full((b, k), -1, dtype=torch.int32, device=qi.device)
+    for lo in range(0, n, _CHUNK):
+        dots = int8_dots(qi, corpus_i8[lo : lo + _CHUNK])
+        tile = cp[None, lo : lo + _CHUNK] - dots * cs[None, lo : lo + _CHUNK]
+        ids = torch.arange(lo, lo + tile.shape[1], dtype=torch.int32,
+                           device=qi.device)
+        td, ti = masked_topk(tile, k, ids=ids)
+        bd, bi = merge_topk(bd, bi, td, ti)
+    return _int8_emit(bd, bi, qs, metric)
+
+
+def flat_topk_int8_cuda(
+    queries: torch.Tensor,
+    corpus_i8: torch.Tensor,
+    corpus_scale: torch.Tensor,
+    k: int,
+    *,
+    metric: Metric | str = Metric.COSINE,
+    corpus_valid: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Launch the kernel in its int8 mode. CUDA tensors only: a contiguous
+    int8 corpus and its f32 scales, read in place. Raises on anything else,
+    and on a failed build or launch."""
+    metric = parse_metric(metric)
+    _check_k(k)
+    _check_cuda(queries, corpus_i8, "flat_topk_int8_cuda")
+    if corpus_i8.dtype != torch.int8 or not corpus_i8.is_contiguous():
+        raise ValueError(
+            "flat_topk_int8_cuda takes a contiguous int8 corpus, got"
+            f" {corpus_i8.dtype}{'' if corpus_i8.is_contiguous() else ', strided'}"
+        )
+    b, n = _check_shapes(queries, corpus_i8, corpus_valid)
+    if tuple(corpus_scale.shape) != (n,):
+        raise ValueError(
+            f"corpus_scale has shape {tuple(corpus_scale.shape)}, want ({n},)"
+        )
+    qi, qs = _int8_queries(queries, metric)
+    if b == 0:
+        return _empty(k, qi.device)
+    cp = _int8_penalty(n, corpus_valid, qi.device)
+    cs = corpus_scale.float().contiguous()
+    unused_qn = torch.empty(0, dtype=torch.float32, device=qi.device)
+    sd, si = _launch(qi.contiguous(), corpus_i8, unused_qn, cp, cs, k,
+                     _MODE[metric], _OP_INT8, "flat_topk_int8")
+    return _int8_emit(sd, si, qs, metric)
+
+
+def flat_topk_int8(
+    queries: torch.Tensor,
+    corpus_i8: torch.Tensor,
+    corpus_scale: torch.Tensor,
+    k: int,
+    *,
+    metric: Metric | str = Metric.COSINE,
+    corpus_valid: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Smallest-k over an int8-stored corpus (``pallas_flat.py:389``):
+    queries ``[B, d]`` f32, quantized per call (cosine: normalised first);
+    ``corpus_i8 [N, d]`` int8 rows with per-row f32 scales ``corpus_scale``
+    (for cosine, rows normalised before quantization, as
+    ``quantize_rows_int8(..., normalize=True)`` does). Cosine and inner
+    product only; distances are quantized-dot approximations. Returns
+    ``(dists [B, k] f32, ids [B, k] int32)`` ascending, ``(inf, -1)`` on
+    empty slots.
+
+    CPU tensors run ``flat_topk_int8_plain``; CUDA tensors run the kernel,
+    which serves ``k <= MAX_K``."""
+    fn = flat_topk_int8_plain
+    if not (queries.device.type == "cpu" and corpus_i8.device.type == "cpu"):
+        fn = flat_topk_int8_cuda
+    return fn(queries, corpus_i8, corpus_scale, k, metric=metric,
+              corpus_valid=corpus_valid)
+
+
+def rescore(queries: torch.Tensor, corpus: torch.Tensor, cand: torch.Tensor,
+            k: int, metric: Metric | str) -> tuple[torch.Tensor, torch.Tensor]:
+    """The rescored searches' second tier (``pallas_flat.py:525-528``):
+    exact f32 distances of each (cosine: unit) query's candidates ``cand
+    [B, r]`` (-1: none) against ``corpus``, then the unique top-k."""
+    metric = parse_metric(metric)
+    q = queries.float()
+    if metric is Metric.COSINE:
+        q = unit_rows(q)
+    d = gathered_distances(q, corpus[cand.clamp(min=0).long()], metric)
+    d = torch.where(cand >= 0, d, _INF)
+    return sorted_topk_unique(d, cand, k)
+
+
+def int8_candidates(
+    queries: torch.Tensor,
+    corpus_i8: torch.Tensor,
+    corpus_scale: torch.Tensor,
+    r: int,
+    *,
+    metric: Metric | str = Metric.COSINE,
+    corpus_valid: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``int8_rescored``'s first tier: the ``flat_topk_int8`` top-``r``
+    slots ``[B, r]`` int32, sorted by the int8 ranking."""
+    return flat_topk_int8(queries, corpus_i8, corpus_scale, r, metric=metric,
+                          corpus_valid=corpus_valid)[1]
+
+
+def flat_topk_int8_rescored(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    corpus_i8: torch.Tensor,
+    corpus_scale: torch.Tensor,
+    k: int,
+    r: int = 64,
+    *,
+    metric: Metric | str = Metric.COSINE,
+    corpus_valid: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two-tier search (``pallas_flat.py:493``): ``flat_topk_int8``
+    retrieves the top-``r`` candidates from the int8 shadow, an exact f32
+    rescore against ``corpus`` picks the final ``k``."""
+    cand = int8_candidates(queries, corpus_i8, corpus_scale, r, metric=metric,
+                           corpus_valid=corpus_valid)
+    return rescore(queries, corpus, cand, k, metric)
+
+
+def proj_basis(corpus: torch.Tensor, dp: int, chunk: int = 65536) -> torch.Tensor:
+    """Top-``dp`` uncentred principal directions of ``corpus`` as a
+    ``[d, dp]`` f32 matrix, leading first (``pallas_flat.py:531``): the
+    second-moment matrix summed over corpus chunks in exact f32, then
+    ``torch.linalg.eigh``. Columns are eigenvectors up to sign."""
+    n, d = corpus.shape
+    if not 0 < dp <= d:
+        raise ValueError(f"proj dim {dp} must be in (0, {d}]")
+    m = torch.zeros((d, d), dtype=torch.float32, device=corpus.device)
+    for lo in range(0, n, chunk):
+        xc = corpus[lo : lo + chunk].float()
+        m += exact_f32_dots(xc.T.contiguous(), xc.T.contiguous())
+    _, vecs = torch.linalg.eigh(m)  # ascending eigenvalues
+    return vecs[:, -dp:].flip(1).contiguous()
+
+
+def proj_candidates(
+    queries: torch.Tensor,
+    proj: torch.Tensor,
+    proj_i8: torch.Tensor,
+    proj_scale: torch.Tensor,
+    r: int,
+    *,
+    metric: Metric | str = Metric.COSINE,
+    corpus_valid: torch.Tensor | None = None,
+) -> torch.Tensor:
+    """``proj_rescored``'s first tier: the (cosine: unit) queries projected
+    by ``proj [d, dp]``, then the ``flat_topk_int8`` top-``r`` of the int8
+    projected rows ``proj_i8 [N, dp]`` by inner product: slots ``[B, r]``
+    int32. Cosine and inner product only."""
+    metric = parse_metric(metric)
+    if metric is Metric.L2:
+        raise ValueError("proj_rescored supports cosine/inner_product")
+    q = queries.float()
+    if metric is Metric.COSINE:
+        q = unit_rows(q)
+    qp = exact_f32_dots(q, proj.T.contiguous())
+    return flat_topk_int8(qp, proj_i8, proj_scale, r,
+                          metric=Metric.INNER_PRODUCT,
+                          corpus_valid=corpus_valid)[1]
+
+
+def flat_topk_proj_rescored(
+    queries: torch.Tensor,
+    corpus: torch.Tensor,
+    proj: torch.Tensor,
+    proj_i8: torch.Tensor,
+    proj_scale: torch.Tensor,
+    k: int,
+    r: int = 32,
+    *,
+    metric: Metric | str = Metric.COSINE,
+    corpus_valid: torch.Tensor | None = None,
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """Two-tier search through a projection (``pallas_flat.py:564``):
+    ``proj_candidates`` retrieves ``r`` candidates, and an exact f32
+    rescore against ``corpus`` picks the final ``k``."""
+    cand = proj_candidates(queries, proj, proj_i8, proj_scale, r,
+                           metric=metric, corpus_valid=corpus_valid)
+    return rescore(queries, corpus, cand, k, metric)

@@ -23,7 +23,7 @@ from muninn_tpu_torch.ops.beam import (
     gather_block_dots_cuda,
     gather_block_dots_plain,
 )
-from muninn_tpu_torch.ops.distance import Metric
+from muninn_tpu_torch.ops.distance import Metric, quantize_rows_int8
 
 METRICS = ["l2", "cosine", "inner_product"]
 
@@ -213,3 +213,69 @@ def test_build_runs_one_nvcc_per_missing_source(tmp_path, monkeypatch):
     # "one" was built already: only "bad" reached the compiler
     assert calls.read_text().split()[2:] == [str(csrc / "bad.cu")]
     assert not list((tmp_path / "out").glob("*.tmp"))
+
+
+def _int8_table(x, nbrs):
+    """Rows quantized as HNSW int8 guidance stores them (not normalised)
+    and the packed int8 blocks with their per-neighbour scales."""
+    vi, sc = quantize_rows_int8(torch.from_numpy(x))
+    nb = torch.from_numpy(nbrs).long()
+    return vi, sc, vi[nb], sc[nb]
+
+
+@pytest.mark.parametrize("d", [100, 128])
+def test_gather_block_dots_plain_int8_blocks(d):
+    """int8 blocks: after the caller's per-neighbour scaling (``dots * ps``,
+    ``cn2 * ps * ps``) the results equal float64 dots and squared norms of
+    the dequantized rows within 1e-5; dead lanes are exactly 0."""
+    rng = np.random.default_rng(d)
+    n, r0, e, b = 64, 16, 4, 12
+    x, nbrs, _, _ = _beam_inputs(d, n=n, d=d, r0=r0, b=b)
+    _, _, packed, pscales = _int8_table(x, nbrs)
+    assert packed.dtype == torch.int8 and tuple(pscales.shape) == (n, r0)
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    q /= np.linalg.norm(q, axis=1, keepdims=True)
+    idx, dead = _picks(rng, b, e, n)
+    gd, gc = gather_block_dots(torch.from_numpy(q), torch.from_numpy(idx), packed)
+    lanes = np.repeat(dead, r0, axis=1)
+    assert (gd.numpy()[lanes] == 0).all() and (gc.numpy()[lanes] == 0).all()
+    ps = pscales[torch.from_numpy(idx).clamp(min=0).long()].reshape(b, e * r0)
+    deq = (packed.double() * pscales.double()[..., None]).numpy()
+    blocks = deq[np.maximum(idx, 0)].reshape(b, e * r0, d)
+    want_d = np.where(lanes, 0, np.einsum("bd,bcd->bc", q.astype(np.float64), blocks))
+    want_c = np.where(lanes, 0, (blocks ** 2).sum(-1))
+    np.testing.assert_allclose((gd * ps).numpy(), want_d, rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose((gc * ps * ps).numpy(), want_c, rtol=1e-5, atol=1e-5)
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        gather_block_dots_cuda(torch.from_numpy(q), torch.from_numpy(idx), packed)
+    assert _build.LAUNCHES["beam_dots_int8"] == 0
+
+
+@pytest.mark.parametrize("metric", ["cosine", "inner_product"])
+def test_int8_beam_matches_jax_and_packed_matches_row_dequant(metric):
+    """int8 guidance: the port's row-dequant beam (``scales``) against JAX's
+    on the same int8 table, and the port's packed int8 beam (``pscales``
+    epilogue) against its row path, as ``tests/test_hnsw.py:369-405`` holds
+    JAX's fused int8 beam against its row path: beam id sets overlap >=
+    0.95, the first ef/2 sorted distances within 1e-4 (the two forms round
+    the dequantized dot in another order)."""
+    ef = 24
+    x, nbrs, q, entry = _beam_inputs(11, r0=32, b=24)
+    vi, sc, packed, pscales = _int8_table(x, nbrs)
+    args = (torch.from_numpy(q), torch.from_numpy(entry), vi,
+            torch.from_numpy(nbrs), Metric(metric), ef)
+    rd, ri = _beam_search_level0(*args, expand=4, scales=sc)
+    pd, pi = _beam_search_level0(*args, expand=4, scales=sc, packed=packed,
+                                 pscales=pscales)
+    jd, ji = jax_beam(
+        jnp.asarray(q), jnp.asarray(entry), jnp.asarray(vi.numpy()),
+        jnp.asarray(nbrs), JaxMetric(metric), ef, expand=4,
+        scales=jnp.asarray(sc.numpy()),
+    )
+    assert _overlap(ri.numpy(), np.asarray(ji)) >= 0.95
+    np.testing.assert_allclose(rd.numpy()[:, : ef // 2],
+                               np.asarray(jd)[:, : ef // 2], rtol=1e-5, atol=1e-5)
+    assert _overlap(pi.numpy(), ri.numpy()) >= 0.95
+    np.testing.assert_allclose(np.sort(pd.numpy(), axis=1)[:, : ef // 2],
+                               np.sort(rd.numpy(), axis=1)[:, : ef // 2],
+                               rtol=1e-4, atol=1e-4)

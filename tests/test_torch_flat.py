@@ -111,7 +111,7 @@ def test_flat_index_matches_jax_insert_delete_grow(metric):
     d, k = 48, 10
     x = rng.standard_normal((1500, d)).astype(np.float32)
     q = x[rng.integers(0, 700, 9)] + 0.001 * rng.standard_normal((9, d)).astype(np.float32)
-    tidx = FlatIndex(d, metric, capacity=1024)
+    tidx = FlatIndex(d, metric, capacity=1024, device="cpu")
     jidx = JaxFlatIndex(d, metric, capacity=1024, use_pallas=False)
     for idx in (tidx, jidx):
         idx.insert(np.arange(700) * 3 + 5, x[:700])
@@ -134,7 +134,7 @@ def test_flat_index_matches_jax_insert_delete_grow(metric):
 
 def test_flat_index_search_device_is_slot_space():
     x = np.random.default_rng(2).standard_normal((40, 8)).astype(np.float32)
-    idx = FlatIndex(8, "l2")
+    idx = FlatIndex(8, "l2", device="cpu")
     idx.insert(np.arange(40) + 500, x)
     d, slots = idx.search_device(torch.from_numpy(x[:3]), k=2)
     assert isinstance(d, torch.Tensor) and slots.dtype == torch.int32
@@ -144,7 +144,7 @@ def test_flat_index_search_device_is_slot_space():
 
 
 def test_flat_index_errors():
-    idx = FlatIndex(8, "l2")
+    idx = FlatIndex(8, "l2", device="cpu")
     idx.insert([1], np.ones((1, 8), np.float32))
     with pytest.raises(ValueError, match="query dim 9 != index dim 8"):
         idx.search(np.zeros(9), k=1)
@@ -154,11 +154,16 @@ def test_flat_index_errors():
         idx.delete([2])
     with pytest.raises(ValueError, match="invalid metric"):
         FlatIndex(8, "euclidean")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        FlatIndex(8, "cosine", precision="int8_rescored")
+    # the int8 modes are ported; l2 has no int8 form, as in muninn_tpu
+    l2_int8 = FlatIndex(8, "l2", precision="int8_rescored", device="cpu")
+    l2_int8.insert([1], np.ones((1, 8), np.float32))
+    with pytest.raises(ValueError, match="cosine/inner_product"):
+        l2_int8.search(np.ones(8), k=1)
+    with pytest.raises(ValueError, match="tune_rescore_r applies"):
+        idx.tune_rescore_r()
     with pytest.raises(ValueError, match="precision"):
-        FlatIndex(8, "cosine", precision="fastest")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+        FlatIndex(8, "cosine", precision="fastest", device="cpu")
+    with pytest.raises(ValueError, match="cosine/inner_product"):
         flat_topk(torch.zeros(1, 8), torch.zeros(4, 8), 1, precision="int8")
     with pytest.raises(ValueError, match="precision"):
         flat_topk(torch.zeros(1, 8), torch.zeros(4, 8), 1, precision="fastest")
@@ -185,7 +190,7 @@ def test_carry_jax_index_across(metric):
     jidx.insert(np.arange(900) + 10_000, x)
     jidx.delete(np.arange(0, 900, 7) + 10_000)
     state = _jax_state(jidx)
-    tidx = flat_index_from_numpy(state)
+    tidx = flat_index_from_numpy(state, device="cpu")
     assert len(tidx) == len(jidx)
     assert tidx.store.high_watermark == jidx.store.high_watermark
     _assert_same_search(tidx, jidx, q, 10, metric)
@@ -203,7 +208,7 @@ def test_carry_rejects_inconsistent_valid():
     state = {"dim": 2, "metric": "l2", "vectors": np.zeros((2, 2), np.float32),
              "valid": np.array([True, True]), "id_of": np.array([4, -1])}
     with pytest.raises(ValueError, match="valid"):
-        flat_index_from_numpy(state)
+        flat_index_from_numpy(state, device="cpu")
 
 
 def _run(code, env=None):
@@ -241,7 +246,7 @@ def test_cpu_path_never_builds_or_launches(tmp_path):
         import numpy as np
         from muninn_tpu_torch.ops import _build
         from muninn_tpu_torch import FlatIndex
-        idx = FlatIndex(8, "cosine")
+        idx = FlatIndex(8, "cosine", device="cpu")
         idx.insert(np.arange(30), np.random.default_rng(0).standard_normal((30, 8)))
         idx.search(np.ones(8), k=3)
         assert _build.LAUNCHES["flat_topk"] == 0, _build.LAUNCHES
@@ -317,8 +322,8 @@ def test_flat_bf16_mode_recall_vs_highest():
     c = rng.standard_normal((3000, 64)).astype(np.float32)
     c /= np.linalg.norm(c, axis=1, keepdims=True)
     q = c[:200] + 0.3 * rng.standard_normal((200, 64)).astype(np.float32)
-    fast = FlatIndex(64, "cosine", precision="default")
-    exact = FlatIndex(64, "cosine")
+    fast = FlatIndex(64, "cosine", precision="default", device="cpu")
+    exact = FlatIndex(64, "cosine", device="cpu")
     for idx in (fast, exact):
         idx.insert(np.arange(3000), c)
     fi, _ = fast.search(q, k=10)
@@ -331,6 +336,7 @@ def test_flat_bf16_mode_recall_vs_highest():
 def test_kernel_launcher_bf16_mode_refuses_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA tensors"):
         flat_topk_cuda(torch.zeros(2, 8), torch.zeros(5, 8), 3, precision="default")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        flat_topk_cuda(torch.zeros(2, 8), torch.zeros(5, 8), 3, precision="int8")
-    assert _build.LAUNCHES["flat_topk"] == 0
+    with pytest.raises(ValueError, match="CUDA tensors"):
+        flat_topk_cuda(torch.zeros(2, 8), torch.zeros(5, 8), 3,
+                       metric="cosine", precision="int8")
+    assert _build.LAUNCHES["flat_topk"] == _build.LAUNCHES["flat_topk_int8"] == 0

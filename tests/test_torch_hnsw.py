@@ -43,7 +43,7 @@ def _pair(n, d, metric, precision, seed=5):
     j = JaxHnswIndex(d, metric, m=8, ef_construction=64, wave_size=512,
                      capacity=n, seed=seed)
     t = HnswIndex(d, metric, m=8, ef_construction=64, wave_size=512,
-                  capacity=n, seed=seed)
+                  capacity=n, seed=seed, device="cpu")
     j.build_precision = t.build_precision = precision
     j.insert(np.arange(n), x)
     t.insert(np.arange(n), x)
@@ -142,8 +142,8 @@ def test_search_on_carried_graph_matches_jax_fused(metric, tmp_path):
     j = JaxHnswIndex(d, metric, m=8, ef_construction=64, wave_size=512,
                      capacity=n)
     j.insert(np.arange(n), x)
-    t = hnsw_index_from_numpy(_carry(j, tmp_path))
-    flat = FlatIndex(d, metric)
+    t = hnsw_index_from_numpy(_carry(j, tmp_path), device="cpu")
+    flat = FlatIndex(d, metric, device="cpu")
     flat.insert(np.arange(n), x)
     truth, _ = flat.search(q, k=k)
     jid, jdist = _jax_fused_search(j, q, k, ef)
@@ -183,12 +183,12 @@ def test_slice_build_and_search_against_jax(metric):
     j = JaxHnswIndex(d, metric, m=8, ef_construction=64, wave_size=512,
                      capacity=n, expand=8)
     t = HnswIndex(d, metric, m=8, ef_construction=64, wave_size=512,
-                  capacity=n, expand=8)
+                  capacity=n, expand=8, device="cpu")
     j.insert(np.arange(n), x)
     t.insert(np.arange(n), x)
     t.exact_small_n = 0
     t.pack_neighbors()
-    flat = FlatIndex(d, metric)
+    flat = FlatIndex(d, metric, device="cpu")
     flat.insert(np.arange(n), x)
     truth, _ = flat.search(q, k=k)
     tid, tdist = t.search(q, k=k, ef_search=ef)
@@ -204,13 +204,113 @@ def test_slice_build_and_search_against_jax(metric):
     np.testing.assert_allclose(tdist, want, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("metric", ["cosine", "inner_product"])
+def test_int8_guidance_on_carried_graph_matches_jax(metric, tmp_path):
+    """``search_quant = "int8"`` on a JAX-built graph carried across: the
+    port's row-dequant beam (``scales``, the path the CPU takes without a
+    packed table) returns the same ids as JAX's, and distances within 1e-5
+    (the same f32 rescore summed in another order). Routing ranks by bf16
+    operands in the port and by f32 in JAX on the CPU; on this data it
+    picks the same entries."""
+    n, d, k, ef = 3000, 64, 10, 32
+    rng = np.random.default_rng(17)
+    x = _unit(rng, n, d)
+    q = x[:64] + 0.05 * rng.standard_normal((64, d)).astype(np.float32)
+    j = JaxHnswIndex(d, metric, m=8, ef_construction=64, wave_size=512,
+                     capacity=n)
+    j.insert(np.arange(n), x)
+    t = hnsw_index_from_numpy(_carry(j, tmp_path), device="cpu")
+    flat = FlatIndex(d, metric, device="cpu")
+    flat.insert(np.arange(n), x)
+    truth, _ = flat.search(q, k=k)
+    j.search_bf16 = True
+    j.exact_small_n = t.exact_small_n = 0
+    j.search_quant = t.search_quant = "int8"
+    jid, jdist = j.search(q, k=k, ef_search=ef)
+    assert t._maybe_packed() is None  # the row path with scales
+    tid, tdist = t.search(q, k=k, ef_search=ef)
+    assert t._v8 is not None and t._v8[0].dtype == torch.int8
+    np.testing.assert_array_equal(tid, np.asarray(jid))
+    np.testing.assert_allclose(tdist, np.asarray(jdist), rtol=1e-5, atol=1e-5)
+    assert _recall(tid, truth) >= 0.9
+
+
+def test_int8_packed_search_matches_row_dequant():
+    """The packed int8 table (blocks plus per-neighbour scales, built by
+    ``pack_neighbors()``) against the row-dequant path on the same index,
+    as ``tests/test_hnsw.py:369-405`` holds the packed path against the row
+    path; switching the guidance back rebuilds a bf16 table."""
+    n, d, k, ef = 3000, 32, 10, 32
+    rng = np.random.default_rng(19)
+    x = _unit(rng, n, d)
+    q = x[:64] + 0.05 * rng.standard_normal((64, d)).astype(np.float32)
+    t = HnswIndex(d, "cosine", m=8, ef_construction=64, wave_size=512,
+                  capacity=2 * n, device="cpu")
+    t.insert(np.arange(n), x)
+    t.exact_small_n = 0
+    t.search_quant = "int8"
+    ids_row, d_row = t.search(q, k=k, ef_search=ef)
+    t.pack_neighbors()
+    packed = t._maybe_packed()
+    assert packed.dtype == torch.int8 and packed.shape == (t.store.capacity, t.m0, d)
+    assert t._packed_scales.shape == (t.store.capacity, t.m0)
+    ids_pk, d_pk = t.search(q, k=k, ef_search=ef)
+    # the two forms round the dequantized dot differently: a near-tie in
+    # the guidance may swap a row; returned distances are the exact rescore
+    assert np.mean(ids_pk == ids_row) >= 0.99
+    same = ids_pk == ids_row
+    np.testing.assert_allclose(d_pk[same], d_row[same], rtol=1e-6, atol=1e-7)
+    t.search_quant = "bf16"  # the int8 table no longer matches
+    assert t._maybe_packed(force=True).dtype == torch.bfloat16
+    assert t._packed_scales is None
+
+
+def test_unknown_search_quant_raises():
+    """A ``search_quant`` other than "bf16" or "int8" raises at search and
+    at packing instead of running bf16 guidance."""
+    rng = np.random.default_rng(29)
+    x = _unit(rng, 2100, 16)
+    t = HnswIndex(16, "cosine", m=8, wave_size=512, device="cpu")
+    t.insert(np.arange(2100), x)
+    t.exact_small_n = 0
+    t.search_quant = "int4"
+    with pytest.raises(ValueError, match="search_quant"):
+        t.search(x[:4], k=3)
+    with pytest.raises(ValueError, match="search_quant"):
+        t.pack_neighbors()
+
+
+def test_int8_guidance_recall_within_bf16():
+    """``tests/test_hnsw.py:266-300`` on the port: int8 guidance keeps
+    recall within 0.03 of bf16 guidance (0.06 with patience 4); the exact
+    rescore fixes the final ranking."""
+    rng = np.random.default_rng(23)
+    n, d, k = 2500, 32, 5
+    centres = rng.standard_normal((25, d)).astype(np.float32)
+    data = centres[rng.integers(0, 25, n)] + 0.1 * rng.standard_normal((n, d)).astype(np.float32)
+    queries = data[rng.integers(0, n, 48)] + 0.02 * rng.standard_normal((48, d)).astype(np.float32)
+    flat = FlatIndex(d, "cosine", device="cpu")
+    flat.insert(np.arange(n), data)
+    truth, _ = flat.search(queries, k=k)
+    t = HnswIndex(d, "cosine", m=8, ef_construction=64, wave_size=512, device="cpu")
+    t.insert(np.arange(n), data)
+    t.exact_small_n = 0
+    r16 = _recall(t.search(queries, k=k, ef_search=32)[0], truth)
+    t.search_quant = "int8"
+    r8 = _recall(t.search(queries, k=k, ef_search=32)[0], truth)
+    assert r8 >= r16 - 0.03, (r8, r16)
+    t.beam_patience = 4
+    r8p = _recall(t.search(queries, k=k, ef_search=32)[0], truth)
+    assert r8p >= r16 - 0.06, (r8p, r16)
+
+
 def test_small_index_search_is_exact_flat():
     """At or below exact_small_n stored rows, search is FlatIndex's."""
     rng = np.random.default_rng(13)
     x = _unit(rng, 2100, 32)
-    t = HnswIndex(32, "cosine", m=8, wave_size=512)
+    t = HnswIndex(32, "cosine", m=8, wave_size=512, device="cpu")
     t.insert(np.arange(2100) + 7, x)
-    flat = FlatIndex(32, "cosine")
+    flat = FlatIndex(32, "cosine", device="cpu")
     flat.insert(np.arange(2100) + 7, x)
     q = x[:9] + 0.1
     hi, hd = t.search(q, k=5, ef_search=8)
@@ -222,7 +322,7 @@ def test_small_index_search_is_exact_flat():
 
 
 def test_hnsw_edge_cases_and_errors():
-    t = HnswIndex(16, "l2", m=4, wave_size=64)
+    t = HnswIndex(16, "l2", m=4, wave_size=64, device="cpu")
     i, d = t.search(np.zeros((3, 16), np.float32), k=4)
     assert i.shape == (3, 4) and (i == -1).all() and np.isinf(d).all()
     with pytest.raises(ValueError, match="query dim 15 != index dim 16"):
@@ -247,25 +347,28 @@ def test_hnsw_state_round_trips(tmp_path):
                      capacity=1100)
     j.insert(np.arange(1100) * 2 + 1, x)
     state = _carry(j, tmp_path)
-    t = hnsw_index_from_numpy(state)
+    t = hnsw_index_from_numpy(state, device="cpu")
     assert len(t) == 1100 and t.store.slot(2 * 17 + 1) == 17
     back = hnsw_index_to_numpy(t)
     assert set(back) == set(state) - {"kind", "format_version"}
     for key, val in back.items():
         np.testing.assert_array_equal(np.asarray(val), np.asarray(state[key]), err_msg=key)
     # the port's own state round-trips too
-    again = hnsw_index_to_numpy(hnsw_index_from_numpy(back))
+    again = hnsw_index_to_numpy(hnsw_index_from_numpy(back, device="cpu"))
     for key, val in again.items():
         np.testing.assert_array_equal(np.asarray(val), np.asarray(back[key]), err_msg=key)
     bad = dict(back, valid=~back["valid"])
     with pytest.raises(ValueError, match="valid"):
-        hnsw_index_from_numpy(bad)
+        hnsw_index_from_numpy(bad, device="cpu")
     with pytest.raises(ValueError, match="neighbors0"):
-        hnsw_index_from_numpy(dict(back, neighbors0=back["neighbors0"][:, :3]))
+        hnsw_index_from_numpy(dict(back, neighbors0=back["neighbors0"][:, :3]),
+                              device="cpu")
     with pytest.raises(ValueError, match="outside the store"):
-        hnsw_index_from_numpy(dict(back, neighbors0=back["neighbors0"] + 5000))
+        hnsw_index_from_numpy(dict(back, neighbors0=back["neighbors0"] + 5000),
+                              device="cpu")
     with pytest.raises(ValueError, match="hi_index points outside"):
-        hnsw_index_from_numpy(dict(back, hi_index=back["hi_index"] + 10**6))
+        hnsw_index_from_numpy(dict(back, hi_index=back["hi_index"] + 10**6),
+                              device="cpu")
 
 
 def _run(code, env=None):
@@ -304,13 +407,23 @@ def test_hnsw_cpu_path_never_builds_or_launches(tmp_path):
         from muninn_tpu_torch.ops import _build
         from muninn_tpu_torch import HnswIndex
         x = np.random.default_rng(0).standard_normal((600, 8)).astype(np.float32)
-        idx = HnswIndex(8, "cosine", m=4, wave_size=128)
+        idx = HnswIndex(8, "cosine", m=4, wave_size=128, device="cpu")
         idx.insert(np.arange(600), x)
         idx.exact_small_n = 0
         idx.search(x[:5], k=3)
         idx.pack_neighbors()
         idx.search(x[:5], k=3)
-        assert _build.LAUNCHES == {"flat_topk": 0, "beam_dots": 0}, _build.LAUNCHES
+        idx.search_quant = "int8"
+        idx.search(x[:5], k=3)
+        idx.pack_neighbors()
+        idx.search(x[:5], k=3)
+        from muninn_tpu_torch import FlatIndex, QuantizedFlatIndex
+        for flat in (QuantizedFlatIndex(8, device="cpu"),
+                     FlatIndex(8, "cosine", precision="int8_rescored", device="cpu"),
+                     FlatIndex(8, "cosine", precision="proj_rescored", device="cpu")):
+            flat.insert(np.arange(600), x)
+            flat.search(x[:5], k=3)
+        assert not any(_build.LAUNCHES.values()), _build.LAUNCHES
         assert not _build._LIBS
     """, env=env)
     assert res.returncode == 0, res.stderr

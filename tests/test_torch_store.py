@@ -33,7 +33,7 @@ def test_store_matches_jax_through_appends_deletes_growth(
         capacity, pad_multiple, batches):
     rng = np.random.default_rng(capacity + sum(batches))
     d = 12
-    ts = VectorStore(d, capacity, pad_multiple)
+    ts = VectorStore(d, capacity, pad_multiple, device="cpu")
     js = JaxStore(d, capacity, pad_multiple)
     next_id = 1000
     for n in batches:
@@ -51,7 +51,7 @@ def test_store_matches_jax_through_appends_deletes_growth(
 
 
 def test_store_register_unregister_match_jax():
-    ts, js = VectorStore(4, 8, 8), JaxStore(4, 8, 8)
+    ts, js = VectorStore(4, 8, 8, device="cpu"), JaxStore(4, 8, 8)
     ids = np.array([5, 9, 11], np.int64)
     np.testing.assert_array_equal(ts.register(ids, reserve_extra=20),
                                   js.register(ids, reserve_extra=20))
@@ -62,7 +62,7 @@ def test_store_register_unregister_match_jax():
 
 
 def test_store_lookups():
-    ts = VectorStore(3, 8, 8)
+    ts = VectorStore(3, 8, 8, device="cpu")
     vecs = np.arange(6, dtype=np.float32).reshape(2, 3)
     ts.add(np.array([40, 41]), vecs)
     assert ts.slot(41) == 1 and ts.slot(99) is None
@@ -74,7 +74,7 @@ def test_store_lookups():
 
 
 def test_store_duplicate_and_unknown_ids_raise_like_jax():
-    for store in (VectorStore(4, 8, 8), JaxStore(4, 8, 8)):
+    for store in (VectorStore(4, 8, 8, device="cpu"), JaxStore(4, 8, 8)):
         store.add(np.array([1, 2]), np.zeros((2, 4), np.float32))
         with pytest.raises(ValueError, match="duplicate id 1"):
             store.add(np.array([1]), np.zeros((1, 4), np.float32))
@@ -85,13 +85,30 @@ def test_store_duplicate_and_unknown_ids_raise_like_jax():
         assert len(store) == 2 and store.high_watermark == 2
 
 
+@pytest.mark.parametrize("dtype", [torch.float32, torch.int8, torch.bfloat16])
+def test_store_dtype_decides_row_scales(dtype):
+    """int8 storage always carries one f32 scale per row, grown with the
+    store; f32 storage carries none; any other dtype is refused."""
+    if dtype == torch.bfloat16:
+        with pytest.raises(ValueError, match="float32 or int8"):
+            VectorStore(4, 8, 8, device="cpu", dtype=dtype)
+        return
+    ts = VectorStore(4, 8, 8, device="cpu", dtype=dtype)
+    ts.add(np.arange(20), np.ones((20, 4), np.float32))
+    assert ts.vectors.dtype == dtype and ts.capacity == 32
+    if dtype == torch.int8:
+        assert ts.scales.dtype == torch.float32 and ts.scales.shape == (32,)
+    else:
+        assert ts.scales is None
+
+
 def test_store_restore_rebuilds_from_id_of():
     rng = np.random.default_rng(8)
-    src = VectorStore(5, 8, 8)
+    src = VectorStore(5, 8, 8, device="cpu")
     src.add(np.arange(20) + 100, rng.standard_normal((20, 5)).astype(np.float32))
     src.remove(np.array([100, 107, 119]))
     hw = src.high_watermark
-    dst = VectorStore(5, 8, 8)
+    dst = VectorStore(5, 8, 8, device="cpu")
     dst.restore(src.vectors[:hw].numpy(), src._id_of[:hw])
     assert dst.high_watermark == hw and len(dst) == len(src) == 17
     assert dst._slot_of == src._slot_of
