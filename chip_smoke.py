@@ -10,8 +10,9 @@ toolkit:
 Phases, each of which exits non-zero on failure:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
-2. build the ``flat_topk`` and ``beam_dots`` kernels from
-   ``muninn_tpu_torch/csrc``, one ``nvcc`` for each, started together;
+2. build the ``flat_topk``, ``beam_dots`` (with its top-m mode),
+   ``beam_loop`` and ``gather_rows`` kernels from ``muninn_tpu_torch/csrc``,
+   one ``nvcc`` for each, started together;
 3. hold the kernel against its plain PyTorch version on the card, on
    unit-norm Gaussian rows: all three metrics, a 30% validity mask, ragged
    B and N, d in {100, 384, 768}, k in {1, 10, 100, 1024}, including k
@@ -66,7 +67,32 @@ Phases, each of which exits non-zero on failure:
 11. the same index with int8 beam guidance (``search_quant = "int8"``,
    repacked): search held and timed as in phase 10, with ``beam_dots``
    launched on int8 blocks; then ``gather_block_dots`` on the int8 table
-   at the chunk shape against plain.
+   at the chunk shape against plain;
+12. the ``gather_block_topm`` kernel (``beam_dots``' top-m mode) against its
+   plain version: three metrics, f32 and bf16 blocks, d in {100, 128, 384,
+   768}, R0 in {16, 32}, E in {1, 8}, m in {1, 8, R0}, B cycling through
+   {1, 37, 300}, 40% dead picks, 25% of lanes penalised (288 cases);
+   distances within TOL, local indices equal below BIG/2 except at float64
+   near-ties, dead picks (BIG, 0); then ``beam_topm = 12``
+   (``tools/probes/hnsw_topm_probe.py:61-64``) on phase 10's index with bf16
+   guidance, repacked: ``beam_topm`` and not ``beam_dots`` launched over
+   exactly that search, held as in phase 10 and timed beside the fused
+   search; the kernel against plain at the first beam step of one
+   2,816-query chunk;
+13. the ``beam_loop`` kernel against its plain version: integer-grid
+   vectors (``tests/test_beam_loop.py:186-240``'s recipe) in 12 random
+   geometries over the three metrics, slots bit-equal and distances within
+   1e-6; Gaussian rows over a random graph, beam overlap at least 0.99 on
+   average; then ``beam_whole = True`` on the same index at ef=24, expand=8:
+   ``beam_loop`` and not ``beam_dots`` launched over exactly that search,
+   held as in phase 10, recall within 0.01 of phase 10's fused search, timed
+   beside it; the kernel against plain on one 2,816-query chunk;
+14. the ``gather_rows`` kernel against ``table[idx]``: f32, bf16 and int8,
+   d in {100, 384, 768}, M in {0, 1, 1000, 4,099}, bitwise equal, and rows
+   outside the table filled with 0xFF bytes; then one ``gather_rows`` of
+   the HNSW rescore's shape (8,192 x 24 random rows of phase 4's 100k x 384
+   f32 rows) with its launch counted, timed against plain and
+   ``torch.index_select``.
 
 Each kernel's record carries its bound: the larger of the operations over
 the card's peak rate for their type and the bytes (each input read once,
@@ -241,6 +267,39 @@ def compare_int8(kd, ki, pd, pi, qi, ci, cs, cp) -> float:
     return float((kd[fin] - pd[fin]).abs().max()) if bool(fin.any()) else 0.0
 
 
+def compare_topm(kd, kl, pd, pl, q, picks, packed, metric, big) -> float:
+    """The top-m kernel's (kd, kl) [B, E, m] against the plain (pd, pl), on
+    queries ``q`` [B, d] and ``picks`` [B, E] into ``packed``: distances
+    within TOL; dead picks exactly (big, 0); local indices equal wherever
+    the plain distance is below big/2, except where the two chosen rows'
+    float64 distances tie within TOL. Returns the largest distance
+    difference."""
+    torch.testing.assert_close(kd, pd, rtol=TOL, atol=TOL)
+    dead = picks < 0
+    check(bool((kd[dead] == big).all() and (kl[dead] == 0).all()),
+          "top-m: a dead pick is not (BIG, 0)")
+    bad = (pd < big / 2) & (kl != pl)
+    if bool(bad.any()):
+        b, e, r = bad.nonzero(as_tuple=True)
+        slot = picks[b, e].long()
+        qs = q[b].cpu().numpy()
+        ref_k = dist64(qs, packed[slot, kl[b, e, r].long()].float().cpu().numpy(), metric)
+        ref_p = dist64(qs, packed[slot, pl[b, e, r].long()].float().cpu().numpy(), metric)
+        check(bool(np.all(np.abs(ref_k - ref_p) <= TOL + TOL * np.abs(ref_p))),
+              f"top-m: {len(b)} local indices differ without a tie")
+    live = pd < big / 2
+    return float((kd[live] - pd[live]).abs().max()) if bool(live.any()) else 0.0
+
+
+def grid_rows(rng, n: int, d: int) -> np.ndarray:
+    """``tests/test_beam_loop.py:203-206``: multiples of 1/4 in [-1, 1], no
+    all-zero row. Exact in bf16, and every dot and squared norm of two such
+    rows at d <= 128 is exact in f32, in any order."""
+    v = rng.integers(-4, 5, (n, d)).astype(np.float32) / 4.0
+    v[np.abs(v).sum(axis=-1) == 0, 0] = 1.0
+    return v
+
+
 def recall(kid: np.ndarray, pid: np.ndarray) -> float:
     """Share of the plain top-k ids that the kernel's top-k holds too (no
     allowance for ties: ``compare`` judges those)."""
@@ -286,16 +345,29 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from muninn_tpu_torch import FlatIndex, HnswIndex, QuantizedFlatIndex
+    from muninn_tpu_torch.index.hnsw import _route
     from muninn_tpu_torch.ops import _build, beam
+    from muninn_tpu_torch.ops import beam_loop as beam_loop_mod
     from muninn_tpu_torch.ops import flat_topk as flat_topk_mod
+    from muninn_tpu_torch.ops import gather as gather_mod
     from muninn_tpu_torch.ops.beam import (
+        BIG,
         gather_block_dots_cuda,
         gather_block_dots_plain,
+        gather_block_topm_cuda,
+        gather_block_topm_plain,
     )
+    from muninn_tpu_torch.ops.beam_loop import beam_loop_cuda, beam_loop_plain
     from muninn_tpu_torch.ops.distance import (
         exact_f32_dots,
+        gathered_distances,
         quantize_rows_int8,
         unit_rows as unit_t,
+    )
+    from muninn_tpu_torch.ops.gather import (
+        gather_rows,
+        gather_rows_cuda,
+        gather_rows_plain,
     )
     from muninn_tpu_torch.ops.flat_topk import (
         flat_topk,
@@ -328,10 +400,11 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    _build.load_all(["flat_topk", "beam_dots"])  # one nvcc each, in parallel
-    flat_topk_mod._library()
-    beam._library()
-    print(f"build: flat_topk and beam_dots in {time.perf_counter() - t0:.1f} s")
+    sources = ["flat_topk", "beam_dots", "beam_loop", "gather_rows"]
+    _build.load_all(sources)  # one nvcc each, in parallel
+    for mod in (flat_topk_mod, beam, beam_loop_mod, gather_mod):
+        mod._library()
+    print(f"build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s")
     for name, log in _build.BUILD_LOGS.items():
         for line in log.splitlines():
             if "Used" in line or "spill" in line:
@@ -719,6 +792,21 @@ def main() -> int:
     del fast, corpus, valid, pd, lib_d, lib_i
     torch.cuda.empty_cache()
 
+    def check_hnsw(hids, hd, what: str) -> float:
+        """An HNSW search of phase 4's queries: every query answered, its
+        distances ascending and each the exact float64 distance of the
+        returned row, recall@k against phase 4's exact result at least
+        MIN_HNSW_RECALL. Returns the recall."""
+        check(hids.shape == (nq, k) and bool((hids >= 0).all())
+              and bool(np.isfinite(hd).all()), f"{what}: a missing result")
+        check(bool(np.all(hd[:, 1:] >= hd[:, :-1])), f"{what} dists not ascending")
+        true = dist64(np.repeat(qq, k, axis=0), x[(hids - ext[0]).reshape(-1)],
+                      "cosine").reshape(nq, k)
+        np.testing.assert_allclose(hd, true, rtol=TOL, atol=TOL)
+        rec = recall(hids, ids1)
+        check(rec >= MIN_HNSW_RECALL, f"{what} recall@{k} {rec} < {MIN_HNSW_RECALL}")
+        return rec
+
     # 10. the HNSW main path at bench.py's HNSW workload, on phase 4's data
     ef, m, wave = 24, 16, 4096
     hnsw = HnswIndex(d, "cosine", m=m, ef_construction=200,
@@ -742,15 +830,7 @@ def main() -> int:
     for name in ("flat_topk", "beam_dots"):
         check(hnsw_launches[name] > 0,
               f"the HNSW path launched {name} {hnsw_launches[name]} times")
-    check(hids.shape == (nq, k) and bool((hids >= 0).all())
-          and bool(np.isfinite(hd).all()), "HNSW: a missing result")
-    check(bool(np.all(hd[:, 1:] >= hd[:, :-1])), "HNSW dists not ascending")
-    true = dist64(np.repeat(qq, k, axis=0), x[(hids - ext[0]).reshape(-1)],
-                  "cosine").reshape(nq, k)
-    np.testing.assert_allclose(hd, true, rtol=TOL, atol=TOL)
-    hnsw_recall = recall(hids, ids1)
-    check(hnsw_recall >= MIN_HNSW_RECALL,
-          f"HNSW recall@{k} {hnsw_recall} < {MIN_HNSW_RECALL}")
+    hnsw_recall = check_hnsw(hids, hd, "HNSW")
     search_ms = device_ms(lambda: hnsw.search_device(qg, k, ef), reps=3)
     print(f"HNSW 100k x 384 cosine, m={m}, ef={ef}: build {build_s:.3f} s"
           f" ({n / build_s:.0f} vec/s), pack {pack_s:.3f} s; {nq} queries:"
@@ -808,15 +888,7 @@ def main() -> int:
     hnsw8_launches = dict(_build.LAUNCHES)
     check(hnsw8_launches["beam_dots_int8"] > 0 and hnsw8_launches["beam_dots"] == 0,
           f"int8 guidance launches {hnsw8_launches}")
-    check(hids8.shape == (nq, k) and bool((hids8 >= 0).all())
-          and bool(np.isfinite(hd8).all()), "HNSW int8: a missing result")
-    check(bool(np.all(hd8[:, 1:] >= hd8[:, :-1])), "HNSW int8 dists not ascending")
-    true8 = dist64(np.repeat(qq, k, axis=0), x[(hids8 - ext[0]).reshape(-1)],
-                   "cosine").reshape(nq, k)
-    np.testing.assert_allclose(hd8, true8, rtol=TOL, atol=TOL)
-    hnsw8_recall = recall(hids8, ids1)
-    check(hnsw8_recall >= MIN_HNSW_RECALL,
-          f"HNSW int8 recall@{k} {hnsw8_recall} < {MIN_HNSW_RECALL}")
+    hnsw8_recall = check_hnsw(hids8, hd8, "HNSW int8")
     search8_ms = device_ms(lambda: hnsw.search_device(qg, k, ef), reps=3)
     print(f"HNSW int8 guidance, ef={ef}: {nq} queries: first search"
           f" {first8_s:.3f} s, then {search8_ms:.3f} ms"
@@ -840,6 +912,246 @@ def main() -> int:
           f" plain {beam8_plain_ms:.4f} ms; bound {beam8_bound_ms:.4f} ms"
           f" ({beam8_bound_by}); max error after scaling {beam8_err:.3g}",
           flush=True)
+
+    # 12. gather_block_topm (beam_dots' top-m mode): kernel vs plain, then
+    # beam_topm on phase 10's index with bf16 guidance
+    gen = torch.Generator(device="cuda").manual_seed(12)
+
+    def rand(*shape):
+        return torch.rand(*shape, generator=gen, device="cuda")
+
+    topm_err, n_topm = 0.0, 0
+    for d12 in (100, 128, 384, 768):
+        for r0 in (16, 32):
+            base = unit_t(torch.randn(509, r0, d12, generator=gen, device="cuda"))
+            for dtype in (torch.float32, torch.bfloat16):
+                blocks = base.to(dtype)
+                for metric in METRICS:
+                    for e in (1, 8):
+                        for m12 in (1, 8, r0):
+                            b = (1, 37, 300)[n_topm % 3]
+                            qb = unit_t(torch.randn(b, d12, generator=gen, device="cuda"))
+                            pk = torch.randint(0, 509, (b, e), generator=gen,
+                                               device="cuda", dtype=torch.int32)
+                            pk[rand(b, e) < 0.4] = -1
+                            pen = torch.where(rand(b, e * r0) < 0.25, BIG, 0.0)
+                            kd12, kl12 = gather_block_topm_cuda(qb, pk, blocks, pen,
+                                                                metric, m12)
+                            torch.cuda.synchronize()
+                            pd12, pl12 = gather_block_topm_plain(qb, pk, blocks, pen,
+                                                                 metric, m12)
+                            topm_err = max(topm_err, compare_topm(
+                                kd12, kl12, pd12, pl12, qb, pk, blocks, metric, BIG))
+                            n_topm += 1
+    print(f"beam_topm kernel vs plain: {n_topm} cases agree, max |d| error"
+          f" {topm_err:.3g}", flush=True)
+
+    hnsw.search_quant = "bf16"
+    hnsw.pack_neighbors()
+    packed = hnsw._maybe_packed()
+    topm = 12
+    hnsw.beam_topm = topm
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    tids, tdist = hnsw.search(qq, k=k, ef_search=ef)
+    torch.cuda.synchronize()
+    topm_first_s = time.perf_counter() - t0
+    topm_launches = dict(_build.LAUNCHES)
+    check(topm_launches["beam_topm"] > 0 and topm_launches["beam_dots"] == 0,
+          f"beam_topm search launches {topm_launches}")
+    topm_recall = check_hnsw(tids, tdist, "HNSW beam_topm")
+    topm_search_ms = device_ms(lambda: hnsw.search_device(qg, k, ef), reps=3)
+    hnsw.beam_topm = 0
+    fused12_ms = device_ms(lambda: hnsw.search_device(qg, k, ef), reps=3)
+    print(f"HNSW beam_topm={topm}, ef={ef}: {nq} queries: first search"
+          f" {topm_first_s:.3f} s, then {topm_search_ms:.3f} ms"
+          f" ({nq / topm_search_ms * 1e3:.0f} QPS), fused search in the same"
+          f" call {fused12_ms:.3f} ms; recall@{k} {topm_recall}; launches"
+          f" {topm_launches}", flush=True)
+    # the first beam step of phase 10's chunk: in-beam and empty lanes masked
+    r0h = packed.shape[1]
+    nb12 = hnsw.neighbors0[picks.clamp(min=0).long()].reshape(chunk, -1)
+    in_beam = (nb12[:, :, None] == picks[:, None, :]).any(dim=2)
+    pen12 = torch.where(in_beam | (nb12 < 0), BIG, 0.0)
+    kd12, kl12 = gather_block_topm_cuda(qc, picks, packed, pen12, "cosine", topm)
+    torch.cuda.synchronize()
+    pd12, pl12 = gather_block_topm_plain(qc, picks, packed, pen12, "cosine", topm)
+    topm_err = max(topm_err, compare_topm(kd12, kl12, pd12, pl12, qc, picks,
+                                          packed, "cosine", BIG))
+    topm_ms = device_ms(lambda: gather_block_topm_cuda(qc, picks, packed, pen12,
+                                                       "cosine", topm), reps=20)
+    topm_plain_ms = device_ms(lambda: gather_block_topm_plain(
+        qc, picks, packed, pen12, "cosine", topm))
+    # the live blocks, the penalty, queries, norms and ids read; the two
+    # [B, E, m] outputs written
+    topm_bound_ms, topm_bound_by = bound(
+        4.0 * live_picks * r0h * d,
+        "fp32",
+        live_picks * r0h * d * 2 + pen12.numel() * 4 + qc.numel() * 4 + chunk * 4
+        + picks.numel() * 4 + 2 * picks.numel() * topm * 4)
+    print(f"gather_block_topm at [{chunk}, {picks.shape[1]}] x [{r0h}, {d}] bf16,"
+          f" m={topm}: kernel {topm_ms:.4f} ms, plain {topm_plain_ms:.4f} ms;"
+          f" bound {topm_bound_ms:.4f} ms ({topm_bound_by})", flush=True)
+
+    # 13. beam_loop: kernel vs plain, then beam_whole on the same index
+    rng = np.random.default_rng(13)
+    loop_err, n_grid = 0.0, 0
+    for trial in range(12):
+        metric = METRICS[trial % 3]
+        d13, r0 = (100, 128)[trial % 2], (16, 32)[(trial // 2) % 2]
+        cap, b = int(rng.integers(96, 2000)), int(rng.integers(1, 300))
+        ef13, expand = int(rng.integers(4, 65)), int(rng.integers(1, 9))
+        patience, mi13 = int(rng.integers(1, 16)), int(rng.integers(0, 8))
+        v16 = torch.from_numpy(grid_rows(rng, cap, d13)).cuda().bfloat16()
+        nb13 = torch.from_numpy(rng.integers(-1, cap, (cap, r0)).astype(np.int32)).cuda()
+        q13 = torch.from_numpy(grid_rows(rng, b, d13)).cuda()
+        r13 = min(8, ef13)
+        ent = rng.integers(0, cap, (b, r13)).astype(np.int32)
+        ent[rng.random((b, r13)) < 0.1] = -1
+        ent = torch.from_numpy(ent).cuda()
+        e_d = gathered_distances(q13, v16[ent.clamp(min=0).long()].float(), metric)
+        init_d = torch.full((b, ef13), torch.inf, device="cuda")
+        init_i = torch.full((b, ef13), -1, dtype=torch.int32, device="cuda")
+        init_d[:, :r13] = torch.where(ent >= 0, e_d, torch.inf)
+        init_i[:, :r13] = ent
+        blocks = v16[nb13.clamp(min=0).long()]
+        args13 = (q13, init_d, init_i, blocks, nb13, metric, ef13, expand, patience, mi13)
+        kd13, ki13 = beam_loop_cuda(*args13)
+        torch.cuda.synchronize()
+        pd13, pi13, _, _ = beam_loop_plain(*args13)
+        check(torch.equal(ki13, pi13), f"beam_loop: slots differ on grid rows ({trial})")
+        fin = torch.isfinite(pd13)
+        check(torch.equal(torch.isfinite(kd13), fin), "beam_loop: inf pattern differs")
+        torch.testing.assert_close(kd13[fin], pd13[fin], rtol=1e-6, atol=1e-6)
+        if bool(fin.any()):
+            loop_err = max(loop_err, float((kd13[fin] - pd13[fin]).abs().max()))
+        n_grid += 1
+    # Gaussian rows over a random 32-regular graph: only summation order differs
+    cap, d13, b = 5000, 384, 300
+    v16 = unit_t(torch.randn(cap, d13, generator=gen, device="cuda")).bfloat16()
+    nb13 = torch.randint(0, cap, (cap, 32), generator=gen, device="cuda", dtype=torch.int32)
+    q13 = unit_t(torch.randn(b, d13, generator=gen, device="cuda"))
+    ent = torch.randint(0, cap, (b, 8), generator=gen, device="cuda", dtype=torch.int32)
+    init_d = torch.full((b, ef), torch.inf, device="cuda")
+    init_i = torch.full((b, ef), -1, dtype=torch.int32, device="cuda")
+    init_d[:, :8] = gathered_distances(q13, v16[ent.long()].float(), "cosine")
+    init_i[:, :8] = ent
+    args13 = (q13, init_d, init_i, v16[nb13.long()], nb13, "cosine", ef, 8)
+    kd13, ki13 = beam_loop_cuda(*args13)
+    torch.cuda.synchronize()
+    pd13, pi13, _, _ = beam_loop_plain(*args13)
+
+    def beam_overlap(ka, pa) -> float:
+        ka, pa = ka.cpu().numpy(), pa.cpu().numpy()
+        return float(np.mean([len(set(u[u >= 0]) & set(v[v >= 0])) / max((v >= 0).sum(), 1)
+                              for u, v in zip(ka, pa)]))
+
+    def agreeing_err(kd_, ki_, pd_, pi_) -> float:
+        agree = (ki_ == pi_) & (pi_ >= 0)
+        torch.testing.assert_close(kd_[agree], pd_[agree], rtol=TOL, atol=TOL)
+        return float((kd_[agree] - pd_[agree]).abs().max()) if bool(agree.any()) else 0.0
+
+    gauss_overlap = beam_overlap(ki13, pi13)
+    check(gauss_overlap >= 0.99, f"beam_loop: Gaussian beam overlap {gauss_overlap}")
+    loop_err = max(loop_err, agreeing_err(kd13, ki13, pd13, pi13))
+    print(f"beam_loop kernel vs plain: {n_grid} grid geometries with bit-equal"
+          f" slots, Gaussian beam overlap {gauss_overlap:.5f}; max |d| error"
+          f" {loop_err:.3g}", flush=True)
+
+    hnsw.beam_whole = True
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    wids, wdist = hnsw.search(qq, k=k, ef_search=ef)
+    torch.cuda.synchronize()
+    whole_first_s = time.perf_counter() - t0
+    whole_launches = dict(_build.LAUNCHES)
+    check(whole_launches["beam_loop"] > 0 and whole_launches["beam_dots"] == 0
+          and whole_launches["flat_topk"] > 0, f"whole-beam search launches {whole_launches}")
+    whole_recall = check_hnsw(wids, wdist, "HNSW whole-beam")
+    check(abs(whole_recall - hnsw_recall) <= 0.01,
+          f"whole-beam recall {whole_recall} vs fused {hnsw_recall}")
+    whole_search_ms = device_ms(lambda: hnsw.search_device(qg, k, ef), reps=3)
+    hnsw.beam_whole = False
+    fused13_ms = device_ms(lambda: hnsw.search_device(qg, k, ef), reps=3)
+    print(f"HNSW beam_whole, ef={ef}, expand={hnsw.expand}: {nq} queries: first"
+          f" search {whole_first_s:.3f} s, then {whole_search_ms:.3f} ms"
+          f" ({nq / whole_search_ms * 1e3:.0f} QPS), fused search in the same"
+          f" call {fused13_ms:.3f} ms; recall@{k} {whole_recall} (fused"
+          f" {hnsw_recall}); launches {whole_launches}", flush=True)
+    # one chunk of the whole path: its routed entries as the initial beam
+    r13 = min(hnsw.route_entries, ef)
+    ent = _route(qc, pool, hnsw._pool_vecs(pool), hnsw.metric, r13)
+    init_d = torch.full((chunk, ef), torch.inf, device="cuda")
+    init_i = torch.full((chunk, ef), -1, dtype=torch.int32, device="cuda")
+    init_d[:, :r13] = torch.where(
+        ent >= 0, gathered_distances(qc, hnsw._vecs16()[ent.clamp(min=0).long()].float(),
+                                     "cosine"), torch.inf)
+    init_i[:, :r13] = ent
+    mi13 = -(-ef // hnsw.expand) + 1  # the search's own step budget
+    args13 = (qc, init_d, init_i, packed, hnsw.neighbors0, "cosine", ef, hnsw.expand,
+              0, mi13)
+    kd13, ki13 = beam_loop_cuda(*args13)
+    torch.cuda.synchronize()
+    pd13, pi13, n_exp, fresh = beam_loop_plain(*args13)
+    chunk_overlap = beam_overlap(ki13, pi13)
+    check(chunk_overlap >= 0.99, f"beam_loop: chunk beam overlap {chunk_overlap}")
+    loop_err = max(loop_err, agreeing_err(kd13, ki13, pd13, pi13))
+    loop_ms = device_ms(lambda: beam_loop_cuda(*args13), reps=20)
+    loop_plain_ms = device_ms(lambda: beam_loop_plain(*args13))
+    # the ids of every expansion, the rows of the candidates the dedup keeps
+    # (the kernel reads no others), the queries and norms, the beams in and
+    # out; beside it, the bound counting every block of every expansion
+    beam_io = qc.numel() * 4 + chunk * 4 + 2 * chunk * ef * 8
+    loop_bound_ms, loop_bound_by = bound(
+        4.0 * fresh * d, "fp32", n_exp * r0h * 4 + fresh * d * 2 + beam_io)
+    loop_bound_blocks_ms = bound(
+        4.0 * n_exp * r0h * d, "fp32", n_exp * r0h * (d * 2 + 4) + beam_io)[0]
+    print(f"beam_loop at [{chunk}] queries, ef={ef}, expand={hnsw.expand},"
+          f" {mi13} steps: kernel {loop_ms:.4f} ms, plain {loop_plain_ms:.4f} ms;"
+          f" {n_exp} expansions, {fresh} fresh rows; beam overlap"
+          f" {chunk_overlap:.5f}; bound {loop_bound_ms:.4f} ms ({loop_bound_by};"
+          f" {loop_bound_blocks_ms:.4f} ms counting every block)", flush=True)
+
+    # 14. gather_rows: kernel vs table[idx], then the HNSW rescore's shape
+    n_gather = 0
+    for dtype in (torch.float32, torch.bfloat16, torch.int8):
+        for d14 in (100, 384, 768):
+            t14 = torch.randn(20011, d14, generator=gen, device="cuda") * 40
+            t14 = t14.round().clamp(-127, 127).to(dtype)
+            for m14 in (0, 1, 1000, 4099):
+                i14 = torch.randint(0, 20011, (m14,), generator=gen, device="cuda",
+                                    dtype=torch.int32)
+                k14 = gather_rows_cuda(t14, i14)
+                torch.cuda.synchronize()
+                p14 = gather_rows_plain(t14, i14)
+                check(k14.dtype == p14.dtype and k14.shape == p14.shape
+                      and torch.equal(k14.view(torch.uint8), p14.view(torch.uint8)),
+                      f"gather_rows differs from table[idx] ({dtype}, {d14}, {m14})")
+                n_gather += 1
+    off = gather_rows_cuda(t14, torch.tensor([-1, 20011, 5], dtype=torch.int32,
+                                             device="cuda"))
+    check(bool((off[:2].view(torch.uint8) == 255).all()) and torch.equal(off[2], t14[5]),
+          "gather_rows: rows outside the table are not 0xFF")
+    corpus = hnsw.store.vectors[:n]
+    i14 = torch.randint(0, n, (nq * ef,), generator=gen, device="cuda", dtype=torch.int32)
+    _build.reset_launches()
+    rows14 = gather_rows(corpus, i14)
+    torch.cuda.synchronize()
+    gather_launches = _build.LAUNCHES["gather_rows"]
+    check(gather_launches > 0, f"gather_rows launched {gather_launches} times")
+    check(torch.equal(rows14.view(torch.uint8),
+                      torch.index_select(corpus, 0, i14).view(torch.uint8)),
+          "gather_rows differs from index_select at the rescore's shape")
+    gather_ms = device_ms(lambda: gather_rows_cuda(corpus, i14), reps=20)
+    gather_plain_ms = device_ms(lambda: gather_rows_plain(corpus, i14), reps=20)
+    gather_library_ms = device_ms(lambda: torch.index_select(corpus, 0, i14), reps=20)
+    gbytes = 2.0 * i14.numel() * d * 4 + i14.numel() * 4
+    gather_bound_ms, gather_bound_by = bound(0.0, "fp32", gbytes)
+    print(f"gather_rows: {n_gather} cases bitwise equal; {i14.numel()} x {d} f32"
+          f" rows of {n}: kernel {gather_ms:.4f} ms ({gbytes / gather_ms / 1e6:.0f}"
+          f" GB/s), plain {gather_plain_ms:.4f} ms, index_select"
+          f" {gather_library_ms:.4f} ms; bound {gather_bound_ms:.4f} ms"
+          f" ({gather_bound_by})", flush=True)
 
     print(json.dumps({"kernels": [{
         "name": "flat_topk",
@@ -892,6 +1204,51 @@ def main() -> int:
         "ms_int8": beam8_ms,
         "plain_ms_int8": beam8_plain_ms,
         "bound_ms_int8": beam8_bound_ms,
+    }, {
+        "name": "beam_topm",
+        "route": "cuda",
+        "source": "muninn_tpu_torch/csrc/beam_dots.cu",
+        "replaces": "muninn_tpu/ops/pallas_beam.py:214",
+        "launches": topm_launches["beam_topm"],
+        "max_abs_err": topm_err,
+        "ms": topm_ms,
+        "plain_ms": topm_plain_ms,
+        "bound_ms": topm_bound_ms,
+        "bound_by": topm_bound_by,
+        "library_ms": None,
+        "search_ms": topm_search_ms,
+        "fused_search_ms": fused12_ms,
+        "recall": topm_recall,
+    }, {
+        "name": "beam_loop",
+        "route": "cuda",
+        "source": "muninn_tpu_torch/csrc/beam_loop.cu",
+        "replaces": "muninn_tpu/ops/pallas_beam_loop.py:91",
+        "launches": whole_launches["beam_loop"],
+        "max_abs_err": loop_err,
+        "ms": loop_ms,
+        "plain_ms": loop_plain_ms,
+        "bound_ms": loop_bound_ms,
+        "bound_by": loop_bound_by,
+        "library_ms": None,
+        "bound_ms_all_blocks": loop_bound_blocks_ms,
+        "expansions": n_exp,
+        "fresh_rows": fresh,
+        "search_ms": whole_search_ms,
+        "fused_search_ms": fused13_ms,
+        "recall": whole_recall,
+    }, {
+        "name": "gather_rows",
+        "route": "cuda",
+        "source": "muninn_tpu_torch/csrc/gather_rows.cu",
+        "replaces": "muninn_tpu/ops/pallas_gather.py:36",
+        "launches": gather_launches,
+        "max_abs_err": 0.0,
+        "ms": gather_ms,
+        "plain_ms": gather_plain_ms,
+        "bound_ms": gather_bound_ms,
+        "bound_by": gather_bound_by,
+        "library_ms": gather_library_ms,
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -12,7 +12,11 @@ reference. So far it carries:
   int8 operand modes);
 - HNSW: ``HnswIndex`` bulk build and search (exact routing, a bf16 or
   int8-guided beam over packed neighbour blocks, exact rescore), through
-  ``csrc/flat_topk.cu`` and ``csrc/beam_dots.cu``.
+  ``csrc/flat_topk.cu`` and ``csrc/beam_dots.cu``; with bf16 guidance also
+  the top-m beam (``beam_topm``, the top-m mode of ``csrc/beam_dots.cu``)
+  and the whole beam in one kernel (``beam_whole``, ``csrc/beam_loop.cu``);
+- the row gather ``ops.gather.gather_rows`` (``csrc/gather_rows.cu``),
+  which no production path calls, as in the JAX package.
 
 Indexes live on the card (``device="cuda"``) unless the caller passes
 ``device="cpu"``. On a CUDA device every kernel wrapper launches its

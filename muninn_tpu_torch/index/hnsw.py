@@ -1,5 +1,5 @@
 """HNSW approximate nearest-neighbour index, the PyTorch port of
-``muninn_tpu/index/hnsw.py``: its bulk build and its fused-beam search.
+``muninn_tpu/index/hnsw.py``: its bulk build and its search paths.
 
 - Storage as in the JAX package: dense slots in a ``VectorStore``, the
   level-0 graph as ``int32 [cap, 2M]`` neighbour and ``f32 [cap, 2M]`` edge
@@ -18,7 +18,12 @@
   int8 ones with one scale per row (``search_quant = "int8"``), whose
   expansions read packed ``[R0, d]`` neighbour blocks through
   ``ops.beam.gather_block_dots``, then an exact f32 rescore of the beam.
-  Below ``exact_small_n`` stored rows search is exact ``flat_topk``.
+  Below ``exact_small_n`` stored rows search is exact ``flat_topk``. Two
+  other beam engines over the same packed bf16 table: ``beam_topm > 0``
+  keeps each pick's best candidates in ``ops.beam.gather_block_topm``, and
+  ``beam_whole`` runs the whole beam in one ``ops.beam_loop.beam_loop``
+  kernel per query. ``search_degree`` searches only the first columns of
+  each neighbour row, in every engine.
 
 PyTorch runs eagerly: the beam's ``lax.while_loop`` is a Python loop of at
 most ``max_iters`` steps that reads ``live.any()`` once per step. The JAX
@@ -27,8 +32,8 @@ out-of-range index is a device-side assert on CUDA), so every scatter
 here masks its out-of-range indices out first.
 
 Not ported yet (see ROADMAP.md, queue 1): insert waves into a non-empty
-index, delete and repair, MN-RU prunes, ``beam_topm``, the whole-beam
-kernel and ``search_degree``.
+index, delete and repair, MN-RU prunes, and greedy descent on a graph
+without promoted nodes.
 """
 
 from __future__ import annotations
@@ -39,9 +44,14 @@ import numpy as np
 import torch
 
 from muninn_tpu_torch.index.store import VectorStore
-from muninn_tpu_torch.ops.beam import gather_block_dots
+from muninn_tpu_torch.ops.beam import (
+    BIG,
+    gather_block_dots,
+    gather_block_topm,
+    packed_distances,
+)
+from muninn_tpu_torch.ops.beam_loop import beam_loop
 from muninn_tpu_torch.ops.distance import (
-    _EPS_NORM,
     Metric,
     gathered_distances,
     pairwise_distances,
@@ -50,7 +60,7 @@ from muninn_tpu_torch.ops.distance import (
     squared_norms,
 )
 from muninn_tpu_torch.ops.flat_topk import flat_topk
-from muninn_tpu_torch.ops.topk import masked_topk, sorted_topk_unique
+from muninn_tpu_torch.ops.topk import masked_topk, smallest_k, sorted_topk_unique
 
 HNSW_MAX_LEVELS = 32  # the reference's cap, src/hnsw_algo.h:14
 _SWEEP_ROWS = 8192    # rows per chunk of the bulk kNN sweep and the prune
@@ -81,14 +91,16 @@ def _beam_search_level0(
     dedup: bool = True,
     scales: torch.Tensor | None = None,   # [cap] f32 dequant (int8 vectors)
     pscales: torch.Tensor | None = None,  # [cap, R0] dequant (int8 packed)
+    topm: int = 0,                        # > 0: per-pick top-m in the kernel
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Batched ef-bounded beam search at level 0 (``hnsw.py:172-421``).
 
     The beam is one distance-sorted array of width ``ef`` per query with
     an expanded flag. Each step expands the best ``expand`` unexpanded
     entries, drops neighbours already in the beam or repeated within the
-    step, scores the rest and merges with one top-``ef``. It stops when no
-    query has an unexpanded entry within its patience (``max(ef/4, 10)``
+    step, scores the rest and merges with one top-``ef``; picks and merge
+    break ties to the lower position, as ``lax.top_k`` does. It stops when
+    no query has an unexpanded entry within its patience (``max(ef/4, 10)``
     non-improving expansions by default), or after ``max_iters`` steps.
 
     With ``packed``, candidates are scored from the picks' packed blocks
@@ -97,8 +109,13 @@ def _beam_search_level0(
     (``hnsw.py:235-240``, ``:369-373``): rows of int8 ``vectors`` are
     dequantized by ``scales`` after the gather, and the dots and squared
     norms of int8 blocks are scaled by each neighbour's ``pscales`` entry
-    (``dots * ps``, ``cn2 * ps * ps``) before the metric epilogue. Returns
-    ``(beam_dists [B, ef], beam_slots [B, ef] int32)``, ascending."""
+    (``dots * ps``, ``cn2 * ps * ps``) before the metric epilogue. With
+    ``topm > 0`` over f32 or bf16 blocks (``hnsw.py:298-348``), the
+    candidates in the beam get a +BIG penalty and ``gather_block_topm``
+    keeps each pick's ``topm`` best, so the same-step dedup and the merge
+    run over ``E * topm`` candidates; ``topm == R0`` gives the dots path's
+    beam. Returns ``(beam_dists [B, ef], beam_slots [B, ef] int32)``,
+    ascending."""
     b = queries.shape[0]
     dev = queries.device
     r0 = neighbors0.shape[1]
@@ -107,21 +124,10 @@ def _beam_search_level0(
         patience = max(ef // 4, 10)  # counted in expansions
     if max_iters <= 0:
         max_iters = 2 * (ef // expand + 1) + patience // expand + 8
+    use_topm = packed is not None and topm > 0 and pscales is None
 
     qf = queries.float()
     qn2 = squared_norms(qf)[:, None]
-    qn = torch.sqrt(qn2)
-
-    def packed_epilogue(dots, cn2):
-        """``gathered_distances``' metric over the kernel's (dots, cn2)."""
-        if metric is Metric.INNER_PRODUCT:
-            return -dots
-        if metric is Metric.L2:
-            return torch.clamp(qn2 + cn2 - 2.0 * dots, min=0.0)
-        denom = qn * torch.sqrt(cn2)
-        sim = torch.where(denom < _EPS_NORM, torch.zeros_like(dots),
-                          dots / torch.clamp(denom, min=_EPS_NORM))
-        return 1.0 - sim
 
     def fetch(idx):
         v = vectors[idx]
@@ -139,7 +145,7 @@ def _beam_search_level0(
     beam_i[:, :r_ent] = entry
     expanded = torch.zeros((b, ef), dtype=torch.bool, device=dev)
     stall = torch.zeros(b, dtype=torch.int64, device=dev)
-    c = expand * r0
+    c = expand * (topm if use_topm else r0)
     earlier = torch.ones((c, c), dtype=torch.bool, device=dev).tril(-1)
 
     for _ in range(max_iters):
@@ -148,36 +154,44 @@ def _beam_search_level0(
             break
         # the best `expand` unexpanded entries of each query
         cand_d = torch.where(expanded | (beam_i < 0), _INF, beam_d)
-        pick_d, pick = torch.topk(cand_d, expand, dim=1, largest=False)
+        pick_d, pick = smallest_k(cand_d, expand)
         pick_i = torch.gather(beam_i, 1, pick)
         pick_valid = pick_d < _INF
         live = pick_valid.any(dim=1) & (stall < patience)
         do = pick_valid & live[:, None]
         expanded = expanded | torch.zeros_like(expanded).scatter(1, pick, do)
+        # dead picks ride as -1: the kernels skip their blocks
+        live_picks = torch.where(do, pick_i, -1)
 
-        nbrs = neighbors0[pick_i.clamp(min=0).long()].reshape(b, c)
+        nbrs = neighbors0[pick_i.clamp(min=0).long()].reshape(b, expand * r0)
         nbrs = torch.where(do.repeat_interleave(r0, dim=1), nbrs, -1)
         # dedup by equality: drop candidates already in the beam and
         # repeats within this step (the first occurrence stays)
         beam_cmp = torch.where(beam_i < 0, -2, beam_i)
-        drop = (nbrs[:, :, None] == beam_cmp[:, None, :]).any(dim=2)
-        if dedup:
-            drop |= ((nbrs[:, :, None] == nbrs[:, None, :]) & earlier).any(dim=2)
-        nbrs = torch.where(drop, -1, nbrs)
+        in_beam = (nbrs[:, :, None] == beam_cmp[:, None, :]).any(dim=2)
 
-        if packed is not None:
-            # dead picks ride as -1: the kernel skips their blocks
-            dots, cn2 = gather_block_dots(
-                qf, torch.where(do, pick_i, -1), packed
-            )
-            if pscales is not None:
-                ps = pscales[pick_i.clamp(min=0).long()].reshape(b, c)
-                dots = dots * ps
-                cn2 = cn2 * ps * ps
-            nd = packed_epilogue(dots, cn2)
+        if use_topm:
+            pen = torch.where(in_beam | (nbrs < 0), BIG, 0.0)
+            md, ml = gather_block_topm(qf, live_picks, packed, pen, metric, topm)
+            nd = md.reshape(b, c)
+            sel = torch.gather(nbrs.reshape(b, expand, r0), 2, ml.long())
+            nbrs = torch.where(nd < 1.0e38, sel.reshape(b, c), -1)
+            drop = torch.zeros((b, c), dtype=torch.bool, device=dev)
         else:
-            nd = gathered_distances(qf, fetch(nbrs.clamp(min=0).long()),
-                                    metric)
+            drop = in_beam
+            if packed is not None:
+                dots, cn2 = gather_block_dots(qf, live_picks, packed)
+                if pscales is not None:
+                    ps = pscales[pick_i.clamp(min=0).long()].reshape(b, c)
+                    dots = dots * ps
+                    cn2 = cn2 * ps * ps
+                nd = packed_distances(dots, cn2, qn2, metric)
+            else:
+                nd = gathered_distances(qf, fetch(nbrs.clamp(min=0).long()),
+                                        metric)
+        if dedup:
+            drop = drop | ((nbrs[:, :, None] == nbrs[:, None, :]) & earlier).any(dim=2)
+        nbrs = torch.where(drop, -1, nbrs)
         nd = torch.where(nbrs >= 0, nd, _INF)
 
         # merge: one top-ef over [beam | fresh candidates]
@@ -185,7 +199,7 @@ def _beam_search_level0(
         cat_i = torch.cat([beam_i, nbrs], dim=1)
         cat_f = torch.cat([expanded, torch.zeros_like(nbrs, dtype=torch.bool)],
                           dim=1)
-        new_d, pos = torch.topk(cat_d, ef, dim=1, largest=False)
+        new_d, pos = smallest_k(cat_d, ef)
         new_i = torch.gather(cat_i, 1, pos)
         new_f = torch.gather(cat_f, 1, pos)
         new_i = torch.where(torch.isinf(new_d), -1, new_i)
@@ -200,6 +214,27 @@ def _beam_search_level0(
         )
         beam_d, beam_i, expanded = new_d, new_i, new_f
     return beam_d, beam_i
+
+
+def _route(q: torch.Tensor, pool: torch.Tensor, pv: torch.Tensor,
+           metric: Metric, r: int) -> torch.Tensor:
+    """Exact routing: the ``r`` nearest promoted slots of each query
+    (``flat_topk`` at ``precision="default"`` over the pooled rows), -1
+    where the pool has fewer."""
+    _, sel = flat_topk(q, pv, r, metric=metric, precision="default",
+                       corpus_valid=pool >= 0)
+    return torch.where(sel >= 0, pool[sel.clamp(min=0).long()], -1)
+
+
+def _rescore_topk(q: torch.Tensor, vectors: torch.Tensor, valid: torch.Tensor,
+                  beam_i: torch.Tensor, metric: Metric, k: int):
+    """Soft-delete filter, exact f32 rescore of the beam's rows, top-k: the
+    bf16 (or int8) beam decides which rows, the f32 store their
+    distances."""
+    ok = (beam_i >= 0) & valid[beam_i.clamp(min=0).long()]
+    beam_i = torch.where(ok, beam_i, -1)
+    d = gathered_distances(q, vectors[beam_i.clamp(min=0).long()], metric)
+    return sorted_topk_unique(torch.where(ok, d, _INF), beam_i, k)
 
 
 def _search_topk_fused(
@@ -221,22 +256,51 @@ def _search_topk_fused(
     max_iters: int = 0,
     scales: torch.Tensor | None = None,
     pscales: torch.Tensor | None = None,
+    topm: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """The query path (``hnsw.py:429-473``): routing over the promoted pool,
     bf16 or int8 beam, soft-delete filter, exact f32 rescore, top-k."""
-    _, sel = flat_topk(q, pv, r, metric=metric, precision="default",
-                       corpus_valid=pool >= 0)
-    entries = torch.where(sel >= 0, pool[sel.clamp(min=0).long()], -1)
+    entries = _route(q, pool, pv, metric, r)
     _, beam_i = _beam_search_level0(
         q, entries, v16, neighbors0, metric, ef, expand,
         max_iters=max_iters, patience=patience, packed=packed, dedup=dedup,
-        scales=scales, pscales=pscales,
+        scales=scales, pscales=pscales, topm=topm,
     )
-    ok = (beam_i >= 0) & valid[beam_i.clamp(min=0).long()]
-    beam_i = torch.where(ok, beam_i, -1)
-    # the bf16 beam decides which rows; the f32 store their distances
-    d = gathered_distances(q, vectors[beam_i.clamp(min=0).long()], metric)
-    return sorted_topk_unique(torch.where(ok, d, _INF), beam_i, k)
+    return _rescore_topk(q, vectors, valid, beam_i, metric, k)
+
+
+def _search_topk_whole(
+    q: torch.Tensor,           # [B, d] f32
+    pool: torch.Tensor,        # [Mp] promoted slots, -1 pad
+    pv: torch.Tensor,          # [Mp, d] pooled f32 vectors
+    vectors: torch.Tensor,     # [cap, d] f32 store
+    v16: torch.Tensor,         # [cap, d] bf16 shadow (entry scoring)
+    packed: torch.Tensor,      # [cap, R0, d] bf16 neighbour blocks
+    neighbors0: torch.Tensor,  # [cap, R0] int32, the blocks' ids
+    valid: torch.Tensor,       # [cap] bool
+    metric: Metric,
+    k: int,
+    ef: int,
+    expand: int,
+    r: int,
+    patience: int = 0,
+    max_iters: int = 0,
+    pick_xfer: str = "dma",
+) -> tuple[torch.Tensor, torch.Tensor]:
+    """The whole-beam query path (``hnsw.py:481-527``): routing, entry
+    distances from the bf16 shadow, the whole level-0 beam in one
+    ``beam_loop`` kernel, then ``_search_topk_fused``'s filter, rescore and
+    top-k."""
+    entries = _route(q, pool, pv, metric, r)
+    e_d = gathered_distances(q, v16[entries.clamp(min=0).long()].float(), metric)
+    b, dev = q.shape[0], q.device
+    init_d = torch.full((b, ef), _INF, device=dev)
+    init_i = torch.full((b, ef), -1, dtype=torch.int32, device=dev)
+    init_d[:, : entries.shape[1]] = torch.where(entries >= 0, e_d, _INF)
+    init_i[:, : entries.shape[1]] = entries
+    _, beam_i = beam_loop(q, init_d, init_i, packed, neighbors0, metric, ef,
+                          expand, patience, max_iters, pick_xfer)
+    return _rescore_topk(q, vectors, valid, beam_i, metric, k)
 
 
 # ───────────────────────── bulk build ─────────────────────────
@@ -348,6 +412,7 @@ class HnswIndex:
     JAX package: ``expand``, ``wave_size``, ``route_entries``,
     ``build_precision``, ``search_quant`` ("bf16" or "int8" beam
     guidance), ``beam_patience``, ``beam_max_iters``, ``beam_dedup``,
+    ``search_degree``, ``beam_topm``, ``beam_whole``, ``beam_pick_xfer``,
     ``pack_budget_bytes``, ``exact_small_n``. ``device`` is the card unless
     ``device="cpu"``.
     """
@@ -404,6 +469,22 @@ class HnswIndex:
         self.beam_patience = 0    # 0: the reference's max(ef/4, 10)
         self.beam_max_iters = 0   # 0: ceil(ef/expand) + 1; < 0: converge
         self.beam_dedup = True
+        # search over only the first search_degree neighbours of each row
+        # (rows are distance-sorted): None, or >= 2M, reads them all
+        self.search_degree: int | None = None
+        self._sd_cache: tuple | None = None
+        # > 0: each pick keeps its beam_topm best candidates in the top-m
+        # kernel (ops.beam.gather_block_topm), so the dedup and merge run
+        # over expand * beam_topm candidates; bf16 guidance with a packed
+        # table only, capped at the (sliced) R0, where it is the dots path
+        self.beam_topm = 0
+        # the whole level-0 beam in one kernel (ops.beam_loop): False, True
+        # (on a CUDA index) or "force" (on any device); bf16 guidance only,
+        # otherwise the fused path runs
+        self.beam_whole: bool | str = False
+        # the TPU kernel's pick transfer, "dma" or "scalar": kept for parity,
+        # the same results either way
+        self.beam_pick_xfer = "dma"
         # the packed [cap, R0, d] bf16 (or int8, with [cap, R0] scales)
         # neighbour table: built at the first search after a bulk build on
         # a CUDA device when it fits the budget; on the CPU only through
@@ -524,13 +605,6 @@ class HnswIndex:
         int8 = self._int8_guidance()
         pool = self._routing_pool()
         pv = self._pool_vecs(pool)
-        scales = None
-        if int8:
-            v16, scales = self._vecs8()
-        else:
-            v16 = self._vecs16()
-        packed = self._maybe_packed()
-        pscales = self._packed_scales if packed is not None else None
         r = min(self.route_entries, ef)
         if self.beam_max_iters == 0:
             mi = -(-ef // max(self.expand, 1)) + 1  # about ef expansions
@@ -539,15 +613,68 @@ class HnswIndex:
         else:
             mi = self.beam_max_iters
 
+        # the whole-beam path (hnsw.py:820-845), checked before the fused
+        # path's table is built; it reads the same packed bf16 table
+        whole = self.beam_whole == "force" or (
+            bool(self.beam_whole) and self.device.type == "cuda")
+        if whole and not int8:
+            packed = self._maybe_packed(force=self.beam_whole == "force")
+            if packed is not None:
+                nbrs0, packed, _ = self._search_tables(packed, None)
+                v16 = self._vecs16()
+
+                def one_whole(qc):
+                    return _search_topk_whole(
+                        qc, pool, pv, self.store.vectors, v16, packed, nbrs0,
+                        self.store.valid, self.metric, k, ef, self.expand, r,
+                        self.beam_patience, mi, self.beam_pick_xfer,
+                    )
+
+                return self._run_chunked(q, one_whole)
+
+        scales = None
+        if int8:
+            v16, scales = self._vecs8()
+        else:
+            v16 = self._vecs16()
+        packed = self._maybe_packed()
+        pscales = self._packed_scales if packed is not None else None
+        nbrs0, packed, pscales = self._search_tables(packed, pscales)
+        # the top-m kernel takes f32/bf16 blocks (hnsw.py:889-890)
+        topm = (max(0, min(self.beam_topm, nbrs0.shape[1]))
+                if packed is not None and pscales is None else 0)
+
         def one(qc):
             return _search_topk_fused(
-                qc, pool, pv, self.store.vectors, v16, self.neighbors0,
+                qc, pool, pv, self.store.vectors, v16, nbrs0,
                 self.store.valid, self.metric, k, ef, self.expand, r,
                 self.beam_patience, packed, self.beam_dedup, mi, scales,
-                pscales,
+                pscales, topm,
             )
 
         return self._run_chunked(q, one)
+
+    def _search_tables(self, packed: torch.Tensor | None,
+                       pscales: torch.Tensor | None):
+        """``(neighbors0, packed, pscales)`` as the beam reads them: their
+        first ``search_degree`` columns when that is below ``2M``
+        (``hnsw.py:850-869``). The slices are copied once and cached, keyed
+        on the knob and the identity of the source tables, which the cache
+        keeps alive so that the identity stays sound; every mutation of the
+        graph goes through ``_invalidate_search_caches``, which drops it."""
+        sd = self.search_degree
+        if not sd or sd >= self.m0:
+            return self.neighbors0, packed, pscales
+        c = self._sd_cache
+        if not (c is not None and c[0] == sd and c[1] is self.neighbors0
+                and c[2] is packed and c[3] is pscales):
+            def cut(t):
+                return None if t is None else t[:, :sd].contiguous()
+
+            self._sd_cache = c = (sd, self.neighbors0, packed, pscales,
+                                  cut(self.neighbors0), cut(packed),
+                                  cut(pscales))
+        return c[4], c[5], c[6]
 
     def _run_chunked(self, q: torch.Tensor, one):
         """Run ``one`` over query chunks of balanced, 256-aligned size, at
@@ -586,6 +713,7 @@ class HnswIndex:
         self._pool_vecs_cache = None
         self._packed = None
         self._packed_scales = None
+        self._sd_cache = None
         self._packed_auto = False  # a bulk build turns it back on
 
     def pack_neighbors(self) -> None:
@@ -594,6 +722,7 @@ class HnswIndex:
         self._packed_auto = True
         self._packed = None
         self._packed_scales = None
+        self._sd_cache = None
         self._maybe_packed(force=True)
 
     def _maybe_packed(self, force: bool = False) -> torch.Tensor | None:

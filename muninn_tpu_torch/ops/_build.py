@@ -25,9 +25,11 @@ import threading
 from pathlib import Path
 
 # one count per kernel and operand family: flat_topk's float modes and its
-# int8 mode, beam_dots on f32/bf16 blocks and on int8 blocks
+# int8 mode, beam_dots on f32/bf16 blocks and on int8 blocks, beam_dots'
+# top-m mode, the whole-beam loop, the row gather
 LAUNCHES: dict[str, int] = {"flat_topk": 0, "flat_topk_int8": 0,
-                            "beam_dots": 0, "beam_dots_int8": 0}
+                            "beam_dots": 0, "beam_dots_int8": 0,
+                            "beam_topm": 0, "beam_loop": 0, "gather_rows": 0}
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"

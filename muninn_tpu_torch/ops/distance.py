@@ -26,6 +26,10 @@ class Metric(enum.Enum):
     INNER_PRODUCT = "inner_product"
 
 
+# the metric as the CUDA kernels (csrc/*.cu) take it
+METRIC_CODE = {Metric.L2: 0, Metric.COSINE: 1, Metric.INNER_PRODUCT: 2}
+
+
 def parse_metric(name: str | Metric) -> Metric:
     """Parse a metric name. Raises ValueError on invalid input."""
     if isinstance(name, Metric):

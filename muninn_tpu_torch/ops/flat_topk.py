@@ -30,6 +30,7 @@ import torch
 from muninn_tpu_torch.ops import _build
 from muninn_tpu_torch.ops.distance import (
     _EPS_NORM,
+    METRIC_CODE,
     Metric,
     exact_f32_dots,
     gathered_distances,
@@ -43,7 +44,6 @@ from muninn_tpu_torch.ops.topk import masked_topk, merge_topk, sorted_topk_uniqu
 
 MAX_K = 1024  # the kernel's largest k; csrc/flat_topk.cu kMaxK
 _CHUNK = 65536  # corpus rows per product in the plain version: [B, _CHUNK] peak
-_MODE = {Metric.L2: 0, Metric.COSINE: 1, Metric.INNER_PRODUCT: 2}
 _OP_F32, _OP_BF16, _OP_INT8 = 0, 1, 2  # csrc/flat_topk.cu operand modes
 _INF = float("inf")
 
@@ -223,7 +223,7 @@ def flat_topk_cuda(
     cs = cs.contiguous()
 
     op = _OP_BF16 if bf16 else _OP_F32
-    return _launch(q, c, qn, cp, cs, k, _MODE[metric], op, "flat_topk")
+    return _launch(q, c, qn, cp, cs, k, METRIC_CODE[metric], op, "flat_topk")
 
 
 def _check_k(k: int) -> None:
@@ -443,7 +443,7 @@ def flat_topk_int8_cuda(
     cs = corpus_scale.float().contiguous()
     unused_qn = torch.empty(0, dtype=torch.float32, device=qi.device)
     sd, si = _launch(qi.contiguous(), corpus_i8, unused_qn, cp, cs, k,
-                     _MODE[metric], _OP_INT8, "flat_topk_int8")
+                     METRIC_CODE[metric], _OP_INT8, "flat_topk_int8")
     return _int8_emit(sd, si, qs, metric)
 
 

@@ -47,6 +47,15 @@ def masked_topk(
     return top_d, top_ids
 
 
+def smallest_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """The ``k`` smallest entries of each row (last axis), ascending, equal
+    values in order of position, as ``lax.top_k`` of the negated row orders
+    them (``torch.topk`` leaves the order of ties open). Returns
+    ``(values, positions int64)``."""
+    vals, pos = torch.sort(x, dim=-1, stable=True)
+    return vals[..., :k], pos[..., :k]
+
+
 def _dedup_ids(
     dists: torch.Tensor, ids: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -117,9 +117,9 @@ def _overlap(a, b):
 @pytest.mark.parametrize("metric", METRICS)
 def test_packed_beam_matches_jax_fused_beam(metric):
     """The port's beam over packed blocks against JAX's fused beam: beam
-    id sets overlap >= 0.95 (torch.topk and lax.top_k may break exact
-    distance ties differently), the first ef/2 sorted distances within
-    1e-5."""
+    id sets overlap >= 0.95 (both break exact ties to the lower position,
+    but f32 sums in another order can swap near-ties), the first ef/2
+    sorted distances within 1e-5."""
     ef = 24
     x, nbrs, q, entry = _beam_inputs(7)
     packed = x[nbrs]

@@ -23,8 +23,11 @@ import torch
 
 from muninn_tpu.index.hnsw import HnswIndex as JaxHnswIndex
 from muninn_tpu.index.hnsw import _search_topk_fused as jax_search_topk_fused
+from muninn_tpu.index.hnsw import _search_topk_whole as jax_search_topk_whole
+from muninn_tpu.ops.pallas_beam_loop import pack_wide as jax_pack_wide
 from muninn_tpu.io.checkpoint import save_hnsw
 from muninn_tpu_torch import FlatIndex, HnswIndex
+from muninn_tpu_torch.index import hnsw as hnsw_mod
 from muninn_tpu_torch.index.convert import hnsw_index_from_numpy, hnsw_index_to_numpy
 from muninn_tpu_torch.ops import _build
 
@@ -118,7 +121,7 @@ def _assert_same_results(tid, tdist, jid, jdist, truth, k):
     assert _recall(tid, truth) >= _recall(jid, truth) - 0.01
 
 
-def _jax_fused_search(j, q, k, ef):
+def _jax_fused_search(j, q, k, ef, topm=0):
     pool = j._routing_pool()
     packed = j._maybe_packed(force=True)
     d, s = jax_search_topk_fused(
@@ -126,9 +129,48 @@ def _jax_fused_search(j, q, k, ef):
         j._vecs16(), j.neighbors0, j.store.valid, j.metric, k, ef,
         j.expand, min(j.route_entries, ef),
         True,  # interpret
-        None, 0, packed, True, -(-ef // j.expand) + 1, True, None, 0,
+        None, 0, packed, True, -(-ef // j.expand) + 1, True, None, topm,
     )
     return j.store.ids_of(np.asarray(s)), np.asarray(d)
+
+
+def _jax_whole_search(j, q, k, ef):
+    """JAX's whole-beam query path in interpret mode, at the knobs its
+    ``_search_topk_chunked`` passes (``hnsw.py:838-845``)."""
+    pool = j._routing_pool()
+    d, s = jax_search_topk_whole(
+        jnp.asarray(q), pool, j._pool_vecs(pool), j.store.vectors,
+        j._vecs16(), jax_pack_wide(j._vecs16(), j.neighbors0), j.store.valid,
+        j.metric, k, ef, j.expand, min(j.route_entries, ef),
+        True, 0, -(-ef // j.expand) + 1, "dma",
+    )
+    return j.store.ids_of(np.asarray(s)), np.asarray(d)
+
+
+@pytest.fixture(scope="module")
+def carried(tmp_path_factory):
+    """A cosine JAX graph (n = 3,000, d = 128, m = 8) and its state, with
+    queries near rows and their exact top-10."""
+    n, d = 3000, 128
+    rng = np.random.default_rng(11)
+    x = _unit(rng, n, d)
+    q = x[:64] + 0.05 * rng.standard_normal((64, d)).astype(np.float32)
+    j = JaxHnswIndex(d, "cosine", m=8, ef_construction=64, wave_size=512,
+                     capacity=n)
+    j.insert(np.arange(n), x)
+    state = _carry(j, tmp_path_factory.mktemp("carried"))
+    flat = FlatIndex(d, "cosine", device="cpu")
+    flat.insert(np.arange(n), x)
+    truth, _ = flat.search(q, k=10)
+    return j, state, q, truth
+
+
+def _counting(monkeypatch, name):
+    """Count the calls the HNSW module makes to ``name``."""
+    calls = []
+    real = getattr(hnsw_mod, name)
+    monkeypatch.setattr(hnsw_mod, name, lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    return calls
 
 
 @pytest.mark.parametrize("metric", METRICS)
@@ -162,6 +204,148 @@ def test_search_on_carried_graph_matches_jax_fused(metric, tmp_path):
     assert t._maybe_packed() is None
     rid, rdist = t.search(q, k=k, ef_search=ef)
     _assert_same_results(rid, rdist, jid, jdist, truth, k)
+
+
+def test_topm_search_on_carried_graph_matches_jax(carried, monkeypatch):
+    """``beam_topm = 8`` on JAX's graph carried across: the search goes
+    through ``gather_block_topm`` and matches JAX's ``_search_topk_fused(...,
+    topm=8)`` in interpret mode within ``_assert_same_results``'
+    tolerances; ``beam_topm`` is capped at R0 (16), where it is the dots
+    path."""
+    j, state, q, truth = carried
+    k, ef = 10, 32
+    t = hnsw_index_from_numpy(state, device="cpu")
+    t.exact_small_n = 0
+    t.pack_neighbors()
+    jid, jdist = _jax_fused_search(j, q, k, ef, topm=8)
+    calls = _counting(monkeypatch, "gather_block_topm")
+    t.beam_topm = 8
+    tid, tdist = t.search(q, k=k, ef_search=ef)
+    assert calls
+    _assert_same_results(tid, tdist, jid, jdist, truth, k)
+    t.beam_topm = 0
+    did, ddist = t.search(q, k=k, ef_search=ef)
+    t.beam_topm = 1000  # capped at R0: the dots path's results
+    wid, wdist = t.search(q, k=k, ef_search=ef)
+    _assert_same_results(wid, wdist, did, ddist, truth, k)
+
+
+def test_search_degree_cached_and_matches_jax(carried):
+    """``search_degree`` slices ``neighbors0`` and the packed table once and
+    caches them (``tests/test_hnsw.py:595-636``): a second search reuses the
+    slices, a new knob or ``pack_neighbors()`` replaces them; results match
+    JAX's packed path with the same ``search_degree`` on the carried graph
+    within ``_assert_same_results``' tolerances. (JAX's non-bulk insert,
+    ``:634-636``, is not ported.)"""
+    j, state, q, truth = carried
+    k, ef = 10, 32
+    t = hnsw_index_from_numpy(state, device="cpu")
+    t.exact_small_n = j.exact_small_n = 0
+    t.pack_neighbors()
+    j.pack_neighbors()
+    j.search_bf16 = True
+    t.search_degree = j.search_degree = 8
+    try:
+        jid, jdist = j.search(q, k=k, ef_search=ef)
+    finally:
+        j.search_bf16, j.search_degree, j.exact_small_n = False, None, 8192
+    tid, tdist = t.search(q, k=k, ef_search=ef)
+    cache1 = t._sd_cache
+    assert cache1 is not None and cache1[4].shape == (t.store.capacity, 8)
+    assert cache1[5].shape == (t.store.capacity, 8, 128) and cache1[5].is_contiguous()
+    tid2, tdist2 = t.search(q, k=k, ef_search=ef)
+    assert t._sd_cache is cache1
+    np.testing.assert_array_equal(tid, tid2)
+    np.testing.assert_array_equal(tdist, tdist2)
+    _assert_same_results(tid, tdist, np.asarray(jid), np.asarray(jdist), truth, k)
+    # half the degree on unclustered rows trades recall for reads
+    assert _recall(tid, truth) >= 0.5
+    t.search_degree = 12
+    t.search(q, k=k, ef_search=ef)
+    cache2 = t._sd_cache
+    assert cache2 is not cache1 and cache2[4].shape[1] == 12
+    t.pack_neighbors()
+    t.search(q, k=k, ef_search=ef)
+    assert t._sd_cache is not cache2 and t._sd_cache[2] is t._maybe_packed()
+    t.search_degree = 16  # >= 2M: the whole rows, no slices
+    assert t._search_tables(t._maybe_packed(), None)[0] is t.neighbors0
+
+
+def test_whole_path_on_carried_graph_matches_jax(carried, monkeypatch):
+    """``beam_whole = "force"`` on JAX's graph carried across runs the
+    whole-beam loop and matches JAX's ``_search_topk_whole`` in interpret
+    mode within ``_assert_same_results``' tolerances. On a CPU index
+    ``beam_whole = True`` and int8 guidance take the fused path, as JAX's
+    gate (``hnsw.py:820-845``) says."""
+    j, state, q, truth = carried
+    k, ef = 10, 32
+    t = hnsw_index_from_numpy(state, device="cpu")
+    t.exact_small_n = 0
+    jid, jdist = _jax_whole_search(j, q, k, ef)
+    calls = _counting(monkeypatch, "beam_loop")
+    t.beam_whole = "force"
+    tid, tdist = t.search(q, k=k, ef_search=ef)
+    assert len(calls) == 1
+    assert t._maybe_packed() is not None  # "force" builds the shared table
+    _assert_same_results(tid, tdist, jid, jdist, truth, k)
+    t.beam_whole = True
+    t.search(q, k=k, ef_search=ef)
+    t.beam_whole = "force"
+    t.search_quant = "int8"
+    t.search(q, k=k, ef_search=ef)
+    assert len(calls) == 1
+
+
+def test_whole_path_respects_jax_deletes(tmp_path):
+    """``tests/test_beam_loop.py:243-257`` across packages: JAX soft-deletes
+    (and repairs around) 100 ids, the graph is carried across, and the
+    port's whole-beam search never returns a victim."""
+    n, d = 3000, 128
+    rng = np.random.default_rng(21)
+    x = _unit(rng, n, d)
+    q = x[rng.integers(0, n, 48)] + 0.05 * rng.standard_normal((48, d)).astype(np.float32)
+    j = JaxHnswIndex(d, "cosine", m=8, ef_construction=64, wave_size=512,
+                     capacity=n)
+    j.insert(np.arange(n), x)
+    victims = np.arange(100, 200)
+    j.delete(victims)
+    t = hnsw_index_from_numpy(_carry(j, tmp_path), device="cpu")
+    t.exact_small_n = 0
+    t.beam_whole = "force"
+    ids, dist = t.search(q, k=10, ef_search=32)
+    assert not np.isin(ids, victims).any()
+    assert (ids >= 0).all() and np.isfinite(dist).all()
+    flat = FlatIndex(d, "cosine", device="cpu")
+    flat.insert(np.arange(n), x)
+    flat.delete(victims)
+    assert _recall(ids, flat.search(q, k=10)[0]) >= 0.8
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_whole_path_unaligned_d_equals_fused_path(metric):
+    """d = 100 (no TPU alignment in the port): the whole-beam path over the
+    packed table returns exactly the fused path's ids and distances, as
+    both run the same steps with the same tie order."""
+    n, d, k, ef = 2100, 100, 10, 24
+    rng = np.random.default_rng(27)
+    x = _unit(rng, n, d)
+    q = x[:40] + 0.05 * rng.standard_normal((40, d)).astype(np.float32)
+    t = HnswIndex(d, metric, m=8, ef_construction=64, wave_size=512,
+                  capacity=n, expand=8, device="cpu")
+    t.insert(np.arange(n), x)
+    t.exact_small_n = 0
+    t.pack_neighbors()
+    fid, fdist = t.search(q, k=k, ef_search=ef)
+    t.beam_whole = "force"
+    wid, wdist = t.search(q, k=k, ef_search=ef)
+    np.testing.assert_array_equal(wid, fid)
+    np.testing.assert_array_equal(wdist, fdist)
+    t.search_degree = 12  # the same through the cached slices
+    wid, wdist = t.search(q, k=k, ef_search=ef)
+    t.beam_whole = False
+    fid, fdist = t.search(q, k=k, ef_search=ef)
+    np.testing.assert_array_equal(wid, fid)
+    np.testing.assert_array_equal(wdist, fdist)
 
 
 @pytest.mark.parametrize("metric", ["l2", "cosine"])
@@ -383,7 +567,7 @@ def test_hnsw_modules_import_no_jax():
         import sys
         from muninn_tpu_torch import HnswIndex
         from muninn_tpu_torch.index import convert, hnsw
-        from muninn_tpu_torch.ops import beam
+        from muninn_tpu_torch.ops import beam, beam_loop, gather
         bad = [m for m in sys.modules if m == "jax" or m.startswith("jax.")
                or m == "muninn_tpu" or m.startswith("muninn_tpu.")]
         assert not bad, bad
@@ -392,7 +576,8 @@ def test_hnsw_modules_import_no_jax():
 
 
 def test_hnsw_cpu_path_never_builds_or_launches(tmp_path):
-    """Build and search (packed and row paths) on CPU tensors run the plain
+    """Build and search (packed and row paths, top-m, search_degree, the
+    whole-beam path) and the row gather on CPU tensors run the plain
     versions: no launch is counted and nvcc is never called."""
     fake = tmp_path / "bin"
     fake.mkdir()
@@ -413,10 +598,17 @@ def test_hnsw_cpu_path_never_builds_or_launches(tmp_path):
         idx.search(x[:5], k=3)
         idx.pack_neighbors()
         idx.search(x[:5], k=3)
+        for knob, value in (("beam_topm", 4), ("search_degree", 6),
+                            ("beam_whole", True), ("beam_whole", "force")):
+            setattr(idx, knob, value)
+            idx.search(x[:5], k=3)
         idx.search_quant = "int8"
         idx.search(x[:5], k=3)
         idx.pack_neighbors()
         idx.search(x[:5], k=3)
+        import torch
+        from muninn_tpu_torch.ops.gather import gather_rows
+        gather_rows(torch.from_numpy(x), torch.arange(9, dtype=torch.int32))
         from muninn_tpu_torch import FlatIndex, QuantizedFlatIndex
         for flat in (QuantizedFlatIndex(8, device="cpu"),
                      FlatIndex(8, "cosine", precision="int8_rescored", device="cpu"),
