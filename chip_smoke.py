@@ -10,9 +10,14 @@ toolkit:
 Phases, each of which exits non-zero on failure:
 
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
-2. build the ``flat_topk``, ``beam_dots`` (with its top-m mode),
-   ``beam_loop`` and ``gather_rows`` kernels from ``muninn_tpu_torch/csrc``,
-   one ``nvcc`` for each, started together;
+2. build the ``flat_topk`` (f32, ``highest``), ``flat_topk_mma`` (the
+   tensor-core kernel of the bf16 and int8 modes), ``beam_dots`` (with its
+   top-m mode), ``beam_loop`` and ``gather_rows`` kernels from
+   ``muninn_tpu_torch/csrc``, one ``nvcc`` for each, started together; print
+   ``ptxas``'s registers and spills, and the tensor-core kernel's shared
+   memory at the main paths' plans; count the tensor-core instructions in
+   its SASS (``cuobjdump -sass``: HGMMA for bf16, IGMMA for s8, both
+   required);
 3. hold the kernel against its plain PyTorch version on the card, on
    unit-norm Gaussian rows: all three metrics, a 30% validity mask, ragged
    B and N, d in {100, 384, 768}, k in {1, 10, 100, 1024}, including k
@@ -23,43 +28,55 @@ Phases, each of which exits non-zero on failure:
    against the plain version as in phase 3 (distances within TOL, ids
    equal up to float64 ties), no deleted id returned, and the kernel's
    launches counted over exactly this run; then kernel, plain and the
-   library call (one f32 matmul, TF32 off, and ``torch.topk``) timed;
+   library call (one f32 matmul, TF32 off, and ``torch.topk``) timed, and
+   the matmul alone (``gemm_ms``); no launch of the tensor-core kernel;
 5. 1,000,000 x 768 cosine, 1,024 queries, k=10: one search through the
    index, held against the plain version the same way; kernel, plain and
    the library call of phase 4 timed;
-6. the kernel's int8 mode (``flat_topk_int8``) against its plain version:
-   cosine and inner product, d in {100, 384, 768}, k in {1, 10, 64, 1024},
-   masked and unmasked, B from 1 to 300 (24 cases); distances bitwise
-   equal, ids equal except where the two rows' rank-only tile values are
-   equal;
+6. the tensor-core kernel's int8 mode (``flat_topk_int8``) against its
+   plain version: cosine and inner product, d in {100, 384, 768}, k in {1,
+   10, 33, 100, 1024}, each masked (30%) and unmasked, B cycling through
+   {1, 63, 64, 65, 300} and N through {5003, 20011, 9001, 900, k/2 + 1} (no
+   N a multiple of the 128-row tile; N below k), 60 cases; distances
+   bitwise equal, ids equal except where the two rows' rank-only tile
+   values are equal;
 7. the int8 main path at ``bench.py``'s north-star shape
    (``bench.py:482-483``, ``:511-539``), on phase 5's 1M x 768 rows with
    8,192 queries, k=10: ``FlatIndex(precision="int8_rescored")`` at r=16
    (recall@10 >= 0.98 against exact ``highest`` on the first 512 queries,
    returned distances within TOL of float64) with its ``flat_topk_int8``
-   launches counted over exactly this search; ``QuantizedFlatIndex``
+   launches counted over exactly this search, every one of them the
+   tensor-core kernel's; ``QuantizedFlatIndex``
    insert, search, delete 1,000 ids, search again (no deleted id, recall@10
    >= 0.90); ``proj_rescored`` at proj_dim 128 and r=32 (recall reported);
    ``tune_rescore_r`` once; the int8 kernel, its plain version and the
    library call (``torch._int_mm`` per 65,536-row chunk, the same epilogue,
-   ``torch.topk``) timed at the main path's call;
+   ``torch.topk``) timed at the main path's call, the ``_int_mm``s alone
+   (``gemm_ms``) beside it, and the kernel held to be faster than the
+   library call;
 8. the ``gather_block_dots`` kernel against its plain version: f32, bf16
    and int8 blocks, d in {100, 128, 384, 768}, R0 in {16, 32}, E in {1, 8},
    B in {1, 37, 300}, 40% dead picks; dots and squared norms within TOL
    (int8: after the caller's per-neighbour scaling), dead lanes exactly 0;
-9. the bf16-operand mode of ``flat_topk`` (``precision="default"``) against
-   its plain version: three metrics, k up to 33, a 30% mask, ids equal up to
-   float64 ties of the bf16-rounded operands; then ``FlatIndex(precision=
-   "default")`` on phase 4's data, held the same way, timed against plain
-   and the library call (one bf16 matmul with f32 sums and output,
-   ``torch.mm(..., out_dtype=torch.float32)``, and ``torch.topk``; its top-1
-   distances held to the kernel's within TOL), with its recall against
-   phase 4's exact result;
+9. the bf16-operand mode of ``flat_topk`` (``precision="default"``, the
+   tensor-core kernel) against its plain version: three metrics, d in {100,
+   384, 768}, k in {1, 10, 33, 100, 1024}, each masked (30%) and unmasked,
+   B and N cycling as in phase 6 (90 cases), ids equal up to float64 ties
+   of the bf16-rounded operands; then ``FlatIndex(precision="default")`` on
+   phase 4's data, held the same way, its launches counted (all of them the
+   tensor-core kernel's), timed against plain and the library call (one
+   bf16 matmul with f32 sums and output, ``torch.mm(...,
+   out_dtype=torch.float32)``, and ``torch.topk``; its top-1 distances held
+   to the kernel's within TOL), the matmul alone (``gemm_ms``), the kernel
+   held to be faster than the library call, with its recall against phase
+   4's exact result;
 10. the HNSW main path at ``bench.py``'s HNSW workload (``bench.py:377-381``)
    on phase 4's data: ``HnswIndex`` of 100,000 x 384 cosine rows, m=16,
    ef_construction=200, wave_size=4,096, capacity 136,864, expand=8,
    seed=42; bulk insert (timed), pack, search 8,192 queries at k=10,
-   ef_search=24 with both kernels' launches counted over exactly this run;
+   ef_search=24 with both kernels' launches counted over exactly this run
+   (every ``flat_topk`` launch of the build and the routing the tensor-core
+   kernel's);
    returned distances equal to the exact distance of each returned row,
    recall@10 against phase 4's exact result at least 0.95; then the search
    timed, and ``gather_block_dots`` kernel against plain on the picks of
@@ -105,11 +122,13 @@ package beside it, the script fails before printing either.
 
 from __future__ import annotations
 
+import itertools
 import json
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 import numpy as np
 import torch
@@ -124,6 +143,11 @@ METRICS = ("l2", "cosine", "inner_product")
 MIN_HNSW_RECALL = 0.95
 MIN_RESCORED_RECALL = 0.98   # int8_rescored, r=16, against exact
 MIN_QUANTIZED_RECALL = 0.90  # QuantizedFlatIndex, int8-only ranking
+# the tensor-core kernel's cases (phases 6 and 9): k across its buffer
+# widths up to MAX_K, B around one warpgroup's 64 rows, N off the 128-row
+# tile and, last, below k
+MMA_KS = (1, 10, 33, 100, 1024)
+MMA_BS = (1, 63, 64, 65, 300)
 # H100 SXM data sheet, dense, at 700 W: FP32 on CUDA cores, bf16 and int8 on
 # tensor cores, HBM bandwidth
 PEAK = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
@@ -291,6 +315,14 @@ def compare_topm(kd, kl, pd, pl, q, picks, packed, metric, big) -> float:
     return float((kd[live] - pd[live]).abs().max()) if bool(live.any()) else 0.0
 
 
+def mma_shape(case: int, k: int) -> tuple[int, int]:
+    """(B, N) of the tensor-core kernel's ``case``-th comparison at ``k``:
+    B cycles through MMA_BS and N through 5003, 20011, 9001, 900 and
+    k/2 + 1, so that 25 consecutive cases meet every pair."""
+    ns = (5003, 20011, 9001, 900, k // 2 + 1)
+    return MMA_BS[case % len(MMA_BS)], ns[(case // len(MMA_BS)) % len(ns)]
+
+
 def grid_rows(rng, n: int, d: int) -> np.ndarray:
     """``tests/test_beam_loop.py:203-206``: multiples of 1/4 in [-1, 1], no
     all-zero row. Exact in bf16, and every dot and squared norm of two such
@@ -400,15 +432,35 @@ def main() -> int:
 
     # 2. build
     t0 = time.perf_counter()
-    sources = ["flat_topk", "beam_dots", "beam_loop", "gather_rows"]
+    sources = ["flat_topk", "flat_topk_mma", "beam_dots", "beam_loop",
+               "gather_rows"]
     _build.load_all(sources)  # one nvcc each, in parallel
     for mod in (flat_topk_mod, beam, beam_loop_mod, gather_mod):
         mod._library()
+    flat_topk_mod._mma_library()
     print(f"build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s")
     for name, log in _build.BUILD_LOGS.items():
         for line in log.splitlines():
-            if "Used" in line or "spill" in line:
+            if any(w in line for w in ("Used", "spill", "wgmma", "arning")):
                 print(f"  ptxas {name}:", line.strip())
+    # the tensor-core kernel's dynamic shared memory (ptxas counts only the
+    # static part) at the main paths' plans
+    for what, k_, d_, op in (("bf16 flat search", 10, 384, flat_topk_mod._OP_BF16),
+                             ("bf16 HNSW build sweep", 33, 384, flat_topk_mod._OP_BF16),
+                             ("int8_rescored", 16, 768, flat_topk_mod._OP_INT8),
+                             ("k=1024", 1024, 100, flat_topk_mod._OP_INT8)):
+        plan = flat_topk_mod.mma_plan(k_, d_, op)
+        print(f"  flat_topk_mma plan {what} (k={k_}, d={d_}): (tq, w, stages,"
+              f" resident query chunks) {plan}, {flat_topk_mod.mma_smem_bytes(*plan)}"
+              " bytes of dynamic shared memory")
+    mma_so = _build.build(["flat_topk_mma"])["flat_topk_mma"]  # built above
+    cuobjdump = Path(_build.nvcc_path()).with_name("cuobjdump")
+    sass = subprocess.run([str(cuobjdump), "-sass", str(mma_so)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    n_hgmma, n_igmma = sass.count("HGMMA"), sass.count("IGMMA")
+    print(f"  flat_topk_mma SASS: {n_hgmma} HGMMA (bf16), {n_igmma} IGMMA (s8)")
+    check(n_hgmma > 0 and n_igmma > 0,
+          "the tensor-core kernel's SASS lacks HGMMA or IGMMA")
     sys.stdout.flush()
 
     # 3. kernel vs plain on the card
@@ -456,6 +508,8 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = _build.LAUNCHES["flat_topk"]
     check(launches >= 2, f"main path launched the kernel {launches} times")
+    check(_build.LAUNCHES["flat_topk_mma"] == 0,
+          "precision='highest' launched the tensor-core kernel")
     check(len(dead) == 1000 and len(index) == n - 1000, "delete count")
     check(not np.isin(ids2, dead).any(), "a deleted id came back")
 
@@ -490,14 +544,17 @@ def main() -> int:
                                                  corpus_valid=valid))
 
     library_ms = device_ms(lambda: f32_library(qg, corpus, valid, k))
+    qu, cu = unit_t(qg), unit_t(corpus)
+    gemm_ms = device_ms(lambda: exact_f32_dots(qu, cu))
+    del qu, cu
     flops = 2.0 * nq * n * d
     f32_bound, f32_bound_by = bound(flops, "fp32",
                                     4.0 * (n + nq) * d + n + 8.0 * nq * k)
     print(f"100k x 384, {nq} queries, k={k}: kernel {ms:.3f} ms"
           f" ({nq / ms * 1e3:.0f} QPS, {flops / ms / 1e9:.2f} TFLOP/s),"
           f" plain {plain_ms:.3f} ms ({nq / plain_ms * 1e3:.0f} QPS), library"
-          f" {library_ms:.3f} ms; bound {f32_bound:.3f} ms ({f32_bound_by})",
-          flush=True)
+          f" {library_ms:.3f} ms (its f32 matmul alone {gemm_ms:.3f} ms);"
+          f" bound {f32_bound:.3f} ms ({f32_bound_by})", flush=True)
     del index, corpus, valid, qg, pd, pd1
     torch.cuda.empty_cache()
 
@@ -532,32 +589,27 @@ def main() -> int:
     torch.cuda.empty_cache()
     del pd5
 
-    # 6. the int8 mode of the kernel (flat_topk_int8) vs plain on the card
+    # 6. the int8 mode of the tensor-core kernel (flat_topk_int8) vs plain
     rng = np.random.default_rng(5)
     n_i8 = 0
     i8_err = 0.0
-    for mi, metric in enumerate(("cosine", "inner_product")):
-        for di, d6 in enumerate((100, 384, 768)):
-            for ki_, k6 in enumerate((1, 10, 64, 1024)):
-                b, n6 = shapes[(mi + di + ki_) % len(shapes)]
-                qt = torch.from_numpy(unit_rows(
-                    rng.standard_normal((b, d6), dtype=np.float32))).cuda()
-                ct = torch.from_numpy(
-                    rng.standard_normal((n6, d6), dtype=np.float32)).cuda()
-                ci, cs = quantize_rows_int8(ct, normalize=metric == "cosine")
-                masked = (mi + di + ki_) % 2 == 0
-                vt = torch.from_numpy(rng.random(n6) >= 0.3).cuda() if masked else None
-                kd, kid = flat_topk_int8_cuda(qt, ci, cs, k6, metric=metric,
-                                              corpus_valid=vt)
-                torch.cuda.synchronize()
-                pd, pid = flat_topk_int8_plain(qt, ci, cs, k6, metric=metric,
-                                               corpus_valid=vt)
-                qi, _ = quantize_rows_int8(unit_t(qt) if metric == "cosine" else qt)
-                cp = torch.zeros(n6, device="cuda")
-                if vt is not None:
-                    cp = torch.where(vt, cp, torch.inf)
-                i8_err = max(i8_err, compare_int8(kd, kid, pd, pid, qi, ci, cs, cp))
-                n_i8 += 1
+    for case, (metric, d6, k6, masked) in enumerate(itertools.product(
+            ("cosine", "inner_product"), (100, 384, 768), MMA_KS, (False, True))):
+        b, n6 = mma_shape(case, k6)
+        qt = torch.from_numpy(unit_rows(
+            rng.standard_normal((b, d6), dtype=np.float32))).cuda()
+        ct = torch.from_numpy(rng.standard_normal((n6, d6), dtype=np.float32)).cuda()
+        ci, cs = quantize_rows_int8(ct, normalize=metric == "cosine")
+        vt = torch.from_numpy(rng.random(n6) >= 0.3).cuda() if masked else None
+        kd, kid = flat_topk_int8_cuda(qt, ci, cs, k6, metric=metric, corpus_valid=vt)
+        torch.cuda.synchronize()
+        pd, pid = flat_topk_int8_plain(qt, ci, cs, k6, metric=metric, corpus_valid=vt)
+        qi, _ = quantize_rows_int8(unit_t(qt) if metric == "cosine" else qt)
+        cp = torch.zeros(n6, device="cuda")
+        if vt is not None:
+            cp = torch.where(vt, cp, torch.inf)
+        i8_err = max(i8_err, compare_int8(kd, kid, pd, pid, qi, ci, cs, cp))
+        n_i8 += 1
     print(f"flat_topk_int8 kernel vs plain: {n_i8} cases, distances bitwise"
           " equal, ids equal up to exact tile ties", flush=True)
 
@@ -578,6 +630,8 @@ def main() -> int:
     resc_first_s = time.perf_counter() - t0
     i8_launches = _build.LAUNCHES["flat_topk_int8"]
     check(i8_launches > 0, f"int8_rescored launched flat_topk_int8 {i8_launches} times")
+    check(_build.LAUNCHES["flat_topk_mma"] == i8_launches,
+          f"int8_rescored launched another kernel: {dict(_build.LAUNCHES)}")
     check(bool((rslot >= 0).all() and torch.isfinite(rd).all()),
           "int8_rescored: a missing result")
     check(bool((rd[:, 1:] >= rd[:, :-1]).all()), "int8_rescored dists not ascending")
@@ -629,6 +683,17 @@ def main() -> int:
     ld7, _ = int8_library()
     check(torch.equal(ld7, kd7), "the _int_mm yardstick's distances differ")
     i8_library_ms = device_ms(int8_library)
+    qi7, _ = quantize_rows_int8(unit_t(q7))
+
+    def int8_gemms():
+        # the yardstick's products alone, over the same chunks
+        for lo in range(0, n5, 65536):
+            torch._int_mm(qi7, vi7[lo : lo + 65536].T)
+
+    i8_gemm_ms = device_ms(int8_gemms)
+    del qi7
+    check(i8_ms < i8_library_ms,
+          f"flat_topk_int8 {i8_ms} ms is not faster than _int_mm's {i8_library_ms} ms")
     i8_ops = 2.0 * nq7 * n5 * d5
     # int8 rows and f32 scales and mask in, f32 queries in, [B, r] out
     i8_bound, i8_bound_by = bound(
@@ -637,7 +702,8 @@ def main() -> int:
           f" ({nq7 / i8_ms * 1e3:.0f} QPS, {i8_ops / i8_ms / 1e9:.2f} TOP/s),"
           f" plain {i8_plain_ms:.3f} ms ({nq7 / i8_plain_ms * 1e3:.0f} QPS),"
           f" library (_int_mm) {i8_library_ms:.3f} ms"
-          f" ({nq7 / i8_library_ms * 1e3:.0f} QPS); bound {i8_bound:.3f} ms"
+          f" ({nq7 / i8_library_ms * 1e3:.0f} QPS; its _int_mm products alone"
+          f" {i8_gemm_ms:.3f} ms); bound {i8_bound:.3f} ms"
           f" ({nq7 / i8_bound * 1e3:.0f} QPS, {i8_bound_by})", flush=True)
     r_tuned = resc.tune_rescore_r(k=k)
     print(f"tune_rescore_r: r={r_tuned}, curve {resc.tune_report}", flush=True)
@@ -656,6 +722,8 @@ def main() -> int:
     quant_s = time.perf_counter() - t0
     quant_launches = _build.LAUNCHES["flat_topk_int8"]
     check(quant_launches >= 2, f"QuantizedFlatIndex launched {quant_launches} times")
+    check(_build.LAUNCHES["flat_topk_mma"] == quant_launches,
+          f"QuantizedFlatIndex launched another kernel: {dict(_build.LAUNCHES)}")
     check(len(dead7) == 1000 and len(quant) == n5 - 1000, "quantized delete count")
     check(not np.isin(qslot2.cpu().numpy(), dead7).any(), "a deleted id came back")
     check(bool(torch.isfinite(qd2).all() and (qd2[:, 1:] >= qd2[:, :-1]).all()),
@@ -678,10 +746,14 @@ def main() -> int:
     proj = FlatIndex(d5, "cosine", capacity=n5, device="cuda",
                      precision="proj_rescored", proj_dim=128)
     proj.insert(ext7, c5)
+    _build.reset_launches()
     t0 = time.perf_counter()
     pjd, pjslot = proj.search_device(q7, k)
     torch.cuda.synchronize()
     proj_first_s = time.perf_counter() - t0
+    check(_build.LAUNCHES["flat_topk_int8"] > 0
+          and _build.LAUNCHES["flat_topk_mma"] == _build.LAUNCHES["flat_topk_int8"],
+          f"proj_rescored launches {dict(_build.LAUNCHES)}")
     check(bool((pjslot >= 0).all() and torch.isfinite(pjd).all()),
           "proj_rescored: a missing result")
     proj_recall = recall(pjslot[:512].cpu().numpy(), truth7)
@@ -739,29 +811,34 @@ def main() -> int:
     print(f"beam_dots kernel vs plain: {n_beam} cases agree, max error"
           f" {beam_err:.3g}", flush=True)
 
-    # 9. flat_topk's bf16-operand mode, kernel vs plain
+    # 9. flat_topk's bf16-operand mode (the tensor-core kernel) vs plain
     bf_err = 0.0
     n_bf = 0
-    for mi, metric in enumerate(METRICS):
-        for b, n7, d7, k7 in ((37, 20011, 384, 33), (300, 9001, 100, 8),
-                              (1, 5003, 768, 10)):
-            q = torch.from_numpy(unit_rows(
-                rng.standard_normal((b, d7), dtype=np.float32))).cuda()
-            c = torch.from_numpy(unit_rows(
-                rng.standard_normal((n7, d7), dtype=np.float32))).cuda()
-            vt = torch.from_numpy(rng.random(n7) >= 0.3).cuda() if mi != 1 else None
-            kd, kid = flat_topk_cuda(q, c, k7, metric=metric, corpus_valid=vt,
-                                     precision="default")
-            torch.cuda.synchronize()
-            pd, pid = flat_topk_plain(q, c, k7, metric=metric, corpus_valid=vt,
-                                      precision="default")
-            bf_err = max(bf_err, compare(kd, kid, pd, pid, q, c, vt, metric,
-                                         ref=dist64_bf16))
-            n_bf += 1
+    for case, (metric, d7, k7, masked) in enumerate(itertools.product(
+            METRICS, (100, 384, 768), MMA_KS, (False, True))):
+        b, n7 = mma_shape(case, k7)
+        q = torch.from_numpy(unit_rows(
+            rng.standard_normal((b, d7), dtype=np.float32))).cuda()
+        c = torch.from_numpy(unit_rows(
+            rng.standard_normal((n7, d7), dtype=np.float32))).cuda()
+        vt = torch.from_numpy(rng.random(n7) >= 0.3).cuda() if masked else None
+        kd, kid = flat_topk_cuda(q, c, k7, metric=metric, corpus_valid=vt,
+                                 precision="default")
+        torch.cuda.synchronize()
+        pd, pid = flat_topk_plain(q, c, k7, metric=metric, corpus_valid=vt,
+                                  precision="default")
+        bf_err = max(bf_err, compare(kd, kid, pd, pid, q, c, vt, metric,
+                                     ref=dist64_bf16))
+        n_bf += 1
     fast = FlatIndex(d, "cosine", capacity=n, device="cuda", precision="default")
     fast.insert(ext, x)
     qg = torch.from_numpy(qq).cuda()
+    _build.reset_launches()
     fd, fslot = fast.search_device(qg, k)
+    torch.cuda.synchronize()
+    bf_launches = _build.LAUNCHES["flat_topk"]
+    check(bf_launches > 0 and _build.LAUNCHES["flat_topk_mma"] == bf_launches,
+          f"FlatIndex(precision='default') launches {dict(_build.LAUNCHES)}")
     corpus = fast.store.vectors[:n]
     valid = fast.store.valid[:n]
     pd, pslot = flat_topk_plain(qg, corpus, k, metric="cosine",
@@ -780,12 +857,19 @@ def main() -> int:
     check(bool(torch.isclose(1.0 - lib_d[:, 0], fd[:, 0], rtol=TOL, atol=TOL).all()),
           "the bf16 yardstick's top-1 distances differ from the kernel's")
     library_ms_def = device_ms(lambda: bf16_library(qg, corpus, valid, k))
-    bound_def = bound(flops, "bf16", 4.0 * (n + nq) * d + n + 8.0 * nq * k)[0]
+    q16, c16 = unit_t(qg).bfloat16(), corpus.bfloat16()
+    gemm_ms_def = device_ms(lambda: torch.mm(q16, c16.T, out_dtype=torch.float32))
+    del q16, c16
+    check(ms_def < library_ms_def,
+          f"the bf16 mode's {ms_def} ms is not faster than the library's"
+          f" {library_ms_def} ms")
+    bound_def, bound_def_by = bound(flops, "bf16", 4.0 * (n + nq) * d + n + 8.0 * nq * k)
     print(f"flat_topk bf16 mode vs plain: {n_bf + 1} cases agree, max |d| error"
           f" {bf_err:.3g}; FlatIndex(precision='default') 100k x 384, {nq}"
           f" queries: recall@{k} {fast_recall} vs exact; kernel {ms_def:.3f} ms"
           f" ({nq / ms_def * 1e3:.0f} QPS), plain {plain_ms_def:.3f} ms, library"
-          f" (bf16 matmul, f32 out) {library_ms_def:.3f} ms; bound"
+          f" (bf16 matmul, f32 out) {library_ms_def:.3f} ms (the matmul alone"
+          f" {gemm_ms_def:.3f} ms); launches {bf_launches}; bound"
           f" {bound_def:.3f} ms; top-1 equal to the kernel's in"
           f" {float((lib_top == fslot[:, 0]).float().mean()):.5f} of queries",
           flush=True)
@@ -830,6 +914,8 @@ def main() -> int:
     for name in ("flat_topk", "beam_dots"):
         check(hnsw_launches[name] > 0,
               f"the HNSW path launched {name} {hnsw_launches[name]} times")
+    check(hnsw_launches["flat_topk_mma"] == hnsw_launches["flat_topk"],
+          f"the HNSW build or routing launched another kernel: {hnsw_launches}")
     hnsw_recall = check_hnsw(hids, hd, "HNSW")
     search_ms = device_ms(lambda: hnsw.search_device(qg, k, ef), reps=3)
     print(f"HNSW 100k x 384 cosine, m={m}, ef={ef}: build {build_s:.3f} s"
@@ -1158,26 +1244,36 @@ def main() -> int:
         "route": "cuda",
         "source": "muninn_tpu_torch/csrc/flat_topk.cu",
         "replaces": "muninn_tpu/ops/pallas_flat.py:49",
-        "launches": hnsw_launches["flat_topk"],
-        "launches_flat_path": launches,
-        "max_abs_err": max(max_err, main_err, err5, bf_err),
+        "launches": launches,
+        "max_abs_err": max(max_err, main_err, err5),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": f32_bound,
         "bound_by": f32_bound_by,
         "library_ms": library_ms,
+        "gemm_ms": gemm_ms,
         "ms_1m_768": ms5,
         "plain_ms_1m_768": plain_ms5,
         "bound_ms_1m_768": bound5,
         "library_ms_1m_768": library_ms5,
-        "ms_default": ms_def,
-        "plain_ms_default": plain_ms_def,
-        "bound_ms_default": bound_def,
-        "library_ms_default": library_ms_def,
+    }, {
+        "name": "flat_topk_bf16",
+        "route": "cuda",
+        "source": "muninn_tpu_torch/csrc/flat_topk_mma.cu",
+        "replaces": "muninn_tpu/ops/pallas_flat.py:49",
+        "launches": bf_launches,
+        "launches_hnsw_build_and_search": hnsw_launches["flat_topk_mma"],
+        "max_abs_err": bf_err,
+        "ms": ms_def,
+        "plain_ms": plain_ms_def,
+        "bound_ms": bound_def,
+        "bound_by": bound_def_by,
+        "library_ms": library_ms_def,
+        "gemm_ms": gemm_ms_def,
     }, {
         "name": "flat_topk_int8",
         "route": "cuda",
-        "source": "muninn_tpu_torch/csrc/flat_topk.cu",
+        "source": "muninn_tpu_torch/csrc/flat_topk_mma.cu",
         "replaces": "muninn_tpu/ops/pallas_flat.py:74",
         "launches": i8_launches,
         "launches_quantized_path": quant_launches,
@@ -1187,6 +1283,7 @@ def main() -> int:
         "bound_ms": i8_bound,
         "bound_by": i8_bound_by,
         "library_ms": i8_library_ms,
+        "gemm_ms": i8_gemm_ms,
     }, {
         "name": "beam_dots",
         "route": "cuda",

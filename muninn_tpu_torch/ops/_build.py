@@ -26,8 +26,11 @@ from pathlib import Path
 
 # one count per kernel and operand family: flat_topk's float modes and its
 # int8 mode, beam_dots on f32/bf16 blocks and on int8 blocks, beam_dots'
-# top-m mode, the whole-beam loop, the row gather
+# top-m mode, the whole-beam loop, the row gather; flat_topk_mma counts the
+# tensor-core kernel's launches (flat_topk's bf16 mode and flat_topk_int8),
+# each of them also counted under its mode's family
 LAUNCHES: dict[str, int] = {"flat_topk": 0, "flat_topk_int8": 0,
+                            "flat_topk_mma": 0,
                             "beam_dots": 0, "beam_dots_int8": 0,
                             "beam_topm": 0, "beam_loop": 0, "gather_rows": 0}
 

@@ -12,8 +12,10 @@ Port of ``muninn_tpu/ops/pallas_flat.py``:
   ``flat_topk_proj_rescored`` (an int8 retrieve of ``r`` candidates, then an
   exact f32 rescore), and ``proj_basis``.
 
-The kernel (``csrc/flat_topk.cu``) replaces both branches of
-``_flat_topk_kernel``; the plain versions ``flat_topk_plain`` and
+Two kernels replace the branches of ``_flat_topk_kernel``: the f32
+``highest`` mode runs on CUDA cores (``csrc/flat_topk.cu``), the bf16 and
+int8 modes on the tensor cores with the top-k beside the accumulators
+(``csrc/flat_topk_mma.cu``). The plain versions ``flat_topk_plain`` and
 ``flat_topk_int8_plain`` mirror ``_xla_topk``.
 
 The wrappers pick the path by the tensors' device: CPU tensors go to the
@@ -42,10 +44,79 @@ from muninn_tpu_torch.ops.distance import (
 )
 from muninn_tpu_torch.ops.topk import masked_topk, merge_topk, sorted_topk_unique
 
-MAX_K = 1024  # the kernel's largest k; csrc/flat_topk.cu kMaxK
+MAX_K = 1024  # the kernels' largest k; kMaxK in both sources
 _CHUNK = 65536  # corpus rows per product in the plain version: [B, _CHUNK] peak
-_OP_F32, _OP_BF16, _OP_INT8 = 0, 1, 2  # csrc/flat_topk.cu operand modes
+_OP_F32, _OP_BF16, _OP_INT8 = 0, 1, 2  # operand modes; 1, 2: flat_topk_mma.cu
 _INF = float("inf")
+
+# csrc/flat_topk_mma.cu's geometry: bytes of K per pipeline stage (64 bf16 or
+# 128 int8), corpus rows per tile, columns between candidate-region checks,
+# the most stages, and the dynamic shared memory a block may use (H100).
+MMA_CHUNK_BYTES = 128
+MMA_TILE_ROWS = 128
+MMA_CHECK = 16
+MMA_MAX_STAGES = 6
+SMEM_LIMIT = 232448
+
+
+def mma_plan(k: int, d: int, op: int) -> tuple[int, int, int, int]:
+    """The tensor-core kernel's tiling for ``k`` and ``d`` features of
+    operand mode ``op``: ``(tq, w, stages, a_chunks)``.
+
+    ``w``, the per-query buffer (top-k, then candidates), is the power of
+    two holding k plus one check's ``MMA_CHECK`` columns; ``tq``, the
+    queries per block, is 128 (two consumer warpgroups) down to 8 (one,
+    its other rows idle), so the buffers take 64 KB (128 KB at k > 1008).
+    The query tile stays resident in shared memory (``a_chunks``, its
+    128-byte chunks of K) where that leaves a ring of at least 3 stages;
+    otherwise it streams through the ring beside the corpus (``a_chunks``
+    0), which serves any d. ``stages``: as many as fit, at most 6."""
+    _check_k(k)
+    w = 1 << (k + MMA_CHECK - 1).bit_length()
+    tq = max(8, min(128, 8192 // w))
+    nc = 2 if tq == 128 else 1
+    n_chunks = -(-d * (2 if op == _OP_BF16 else 1) // MMA_CHUNK_BYTES)
+    for a_chunks, least in ((n_chunks, 3), (0, 2)):
+        room = SMEM_LIMIT - mma_smem_bytes(tq, w, 0, a_chunks)
+        stages = min(MMA_MAX_STAGES,
+                     max(room, 0) // _mma_stage_bytes(nc, a_chunks == 0))
+        if stages >= least:
+            return tq, w, stages, a_chunks
+    raise ValueError(f"no tensor-core plan fits k={k}, d={d}")
+
+
+def _mma_stage_bytes(nc: int, streamed: bool) -> int:
+    """One ring stage: the queries' chunk ``[64 nc, 128 B]`` when they
+    stream, the corpus chunk ``[128, 128 B]``, the tile's penalty and scale
+    rows."""
+    rows = (64 * nc if streamed else 0) + MMA_TILE_ROWS
+    return rows * MMA_CHUNK_BYTES + 2 * MMA_TILE_ROWS * 4
+
+
+def mma_smem_bytes(tq: int, w: int, stages: int, a_chunks: int) -> int:
+    """Dynamic shared memory of one block (``smem_bytes`` in the source):
+    the resident query chunks, the ring, its barriers, the per-query
+    buffers ``[tq, w]`` of (f32, int32), counts and thresholds, each
+    consumer warpgroup's copy of a tile's penalty and scale, and 1 KB to
+    align the ring."""
+    nc = 2 if tq == 128 else 1
+    return (a_chunks * 64 * nc * MMA_CHUNK_BYTES
+            + stages * _mma_stage_bytes(nc, a_chunks == 0)
+            + 128 + tq * w * 8 + tq * 8 + nc * 1024 + 1024)
+
+
+def mma_rows(x: torch.Tensor, op: int) -> torch.Tensor:
+    """Rows as the tensor-core kernel reads them: ``[n, d]`` f32 rounded to
+    bf16 (round to nearest even), or int8 as given, zero-padded to whole
+    ``MMA_CHUNK_BYTES`` of K, so every stage is one aligned copy; a zero
+    adds nothing to a dot. The queries always take this form; in the bf16
+    mode the corpus too, once per call (an int8 corpus is read in place)."""
+    dtype = torch.bfloat16 if op == _OP_BF16 else torch.int8
+    per = MMA_CHUNK_BYTES // (2 if op == _OP_BF16 else 1)
+    n, d = x.shape
+    out = torch.zeros((n, -(-d // per) * per), dtype=dtype, device=x.device)
+    out[:, :d] = x.to(dtype)
+    return out
 
 
 def bf16_operands(precision: str) -> bool:
@@ -152,29 +223,62 @@ def flat_topk_plain(
     return bd, bi
 
 
-_LIB: ctypes.CDLL | None = None  # the bound library, loaded at first launch
+_LIB: ctypes.CDLL | None = None  # csrc/flat_topk.cu, loaded at first launch
+_MMA_LIB: ctypes.CDLL | None = None  # csrc/flat_topk_mma.cu
 
 
 def _library() -> ctypes.CDLL:
+    """The f32 kernel's library (``highest``)."""
     global _LIB
     if _LIB is None:
         lib = _build.library("flat_topk")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.flat_topk_launch.argtypes = [ptr] * 7 + [i32] * 8 + [ptr]
+        lib.flat_topk_launch.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
         lib.flat_topk_launch.restype = i32
-        lib.flat_topk_splits.argtypes = [i32] * 5
+        lib.flat_topk_splits.argtypes = [i32] * 4
         lib.flat_topk_splits.restype = i32
-        lib.flat_topk_max_k.argtypes = []
-        lib.flat_topk_max_k.restype = i32
-        lib.flat_topk_error_string.argtypes = [i32]
-        lib.flat_topk_error_string.restype = ctypes.c_char_p
-        if lib.flat_topk_max_k() != MAX_K:
-            raise RuntimeError(
-                f"csrc/flat_topk.cu serves k <= {lib.flat_topk_max_k()},"
-                f" but flat_topk.MAX_K is {MAX_K}"
-            )
+        _bind_common(lib, "flat_topk")
         _LIB = lib
     return _LIB
+
+
+def _mma_library() -> ctypes.CDLL:
+    """The tensor-core kernel's library (bf16 and int8 operands)."""
+    global _MMA_LIB
+    if _MMA_LIB is None:
+        lib = _build.library("flat_topk_mma")
+        ptr, i32 = ctypes.c_void_p, ctypes.c_int
+        lib.flat_topk_mma_launch.argtypes = [ptr] * 7 + [i32] * 12 + [ptr]
+        lib.flat_topk_mma_launch.restype = i32
+        lib.flat_topk_mma_splits.argtypes = [i32] * 10
+        lib.flat_topk_mma_splits.restype = i32
+        lib.flat_topk_mma_smem_bytes.argtypes = [i32] * 4
+        lib.flat_topk_mma_smem_bytes.restype = ctypes.c_longlong
+        _bind_common(lib, "flat_topk_mma")
+        for k, d in ((1, 100), (16, 768), (33, 384), (100, 768), (MAX_K, 384)):
+            plan = mma_plan(k, d, _OP_BF16)
+            if lib.flat_topk_mma_smem_bytes(*plan) != mma_smem_bytes(*plan):
+                raise RuntimeError(
+                    f"csrc/flat_topk_mma.cu asks {lib.flat_topk_mma_smem_bytes(*plan)}"
+                    f" bytes of shared memory for plan {plan}, flat_topk.py"
+                    f" counts {mma_smem_bytes(*plan)}"
+                )
+        _MMA_LIB = lib
+    return _MMA_LIB
+
+
+def _bind_common(lib: ctypes.CDLL, prefix: str) -> None:
+    max_k = getattr(lib, f"{prefix}_max_k")
+    max_k.argtypes = []
+    max_k.restype = ctypes.c_int
+    err = getattr(lib, f"{prefix}_error_string")
+    err.argtypes = [ctypes.c_int]
+    err.restype = ctypes.c_char_p
+    if max_k() != MAX_K:
+        raise RuntimeError(
+            f"csrc/{prefix}.cu serves k <= {max_k()}, but flat_topk.MAX_K is"
+            f" {MAX_K}"
+        )
 
 
 def flat_topk_cuda(
@@ -198,8 +302,8 @@ def flat_topk_cuda(
         )
     bf16 = bf16_operands(precision)
     _check_k(k)
-    # the kernel reads the corpus in place; converting it here would copy
-    # the whole corpus on every search
+    # the f32 kernel reads the corpus in place (the bf16 mode makes one
+    # padded bf16 copy per call); converting it here would copy it again
     if corpus.dtype != torch.float32 or not corpus.is_contiguous():
         raise ValueError(
             "flat_topk_cuda takes a contiguous float32 corpus, got"
@@ -222,8 +326,11 @@ def flat_topk_cuda(
     cp = _penalty_row(c, metric, corpus_valid).contiguous()
     cs = cs.contiguous()
 
-    op = _OP_BF16 if bf16 else _OP_F32
-    return _launch(q, c, qn, cp, cs, k, METRIC_CODE[metric], op, "flat_topk")
+    if bf16:
+        return _launch(mma_rows(q, _OP_BF16), mma_rows(c, _OP_BF16), qn, cp,
+                       cs, k, METRIC_CODE[metric], _OP_BF16, "flat_topk")
+    return _launch(q, c, qn, cp, cs, k, METRIC_CODE[metric], _OP_F32,
+                   "flat_topk")
 
 
 def _check_k(k: int) -> None:
@@ -265,33 +372,44 @@ def _empty(k: int, dev: torch.device) -> tuple[torch.Tensor, torch.Tensor]:
 
 
 def _launch(q, c, qn, cp, cs, k: int, mode: int, op: int, name: str):
-    """One launch of the kernel in operand mode ``op`` over contiguous CUDA
-    operands, then the merge of the per-split partials by their kernel
-    values. Counts the launch under ``LAUNCHES[name]``."""
-    b, d = q.shape
-    n = c.shape[0]
+    """One launch of the kernel of operand mode ``op`` over contiguous CUDA
+    operands (``[B, d]`` and ``[N, d]`` f32 for ``highest``; else as
+    ``mma_rows`` pads them, or an int8 corpus as stored), then the merge of
+    the per-split partials by their kernel values. Counts the launch under
+    ``LAUNCHES[name]``, and a tensor-core launch also under
+    ``LAUNCHES["flat_topk_mma"]``."""
+    b = q.shape[0]
+    n, d = c.shape
     dev = q.device
-    lib = _library()
-    splits = lib.flat_topk_splits(b, n, k, op, dev.index)
+    if op == _OP_F32:
+        lib, prefix = _library(), "flat_topk"
+        splits = lib.flat_topk_splits(b, n, k, dev.index)
+        plan = ()
+    else:
+        lib, prefix = _mma_library(), "flat_topk_mma"
+        plan = (op, *mma_plan(k, d, op))
+        splits = lib.flat_topk_mma_splits(b, n, d, k, *plan, dev.index)
     if splits < 1:
         raise RuntimeError(
-            f"flat_topk: querying {dev} failed: CUDA error {-splits}"
-            f" ({lib.flat_topk_error_string(-splits).decode()})"
+            f"{prefix}: querying {dev} failed: CUDA error {-splits}"
+            f" ({getattr(lib, f'{prefix}_error_string')(-splits).decode()})"
         )
     out_d = torch.empty((splits, b, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((splits, b, k), dtype=torch.int32, device=dev)
     stream = torch.cuda.current_stream(dev).cuda_stream
-    rc = lib.flat_topk_launch(
+    rc = getattr(lib, f"{prefix}_launch")(
         q.data_ptr(), c.data_ptr(), qn.data_ptr(), cp.data_ptr(),
         cs.data_ptr(), out_d.data_ptr(), out_i.data_ptr(),
-        b, n, d, k, mode, op, splits, dev.index, stream,
+        b, n, d, k, mode, *plan, splits, dev.index, stream,
     )
     if rc != 0:
         raise RuntimeError(
-            f"flat_topk kernel launch failed: CUDA error {rc}"
-            f" ({lib.flat_topk_error_string(rc).decode()})"
+            f"{prefix} kernel launch failed: CUDA error {rc}"
+            f" ({getattr(lib, f'{prefix}_error_string')(rc).decode()})"
         )
     _build.LAUNCHES[name] += 1
+    if op != _OP_F32:
+        _build.LAUNCHES["flat_topk_mma"] += 1
     if splits == 1:
         return out_d[0], out_i[0]
     # merge the per-split sorted partials: [B, S*k] -> [B, k]
@@ -425,12 +543,12 @@ def flat_topk_int8_cuda(
     and on a failed build or launch."""
     metric = parse_metric(metric)
     _check_k(k)
-    _check_cuda(queries, corpus_i8, "flat_topk_int8_cuda")
     if corpus_i8.dtype != torch.int8 or not corpus_i8.is_contiguous():
         raise ValueError(
             "flat_topk_int8_cuda takes a contiguous int8 corpus, got"
             f" {corpus_i8.dtype}{'' if corpus_i8.is_contiguous() else ', strided'}"
         )
+    _check_cuda(queries, corpus_i8, "flat_topk_int8_cuda")
     b, n = _check_shapes(queries, corpus_i8, corpus_valid)
     if tuple(corpus_scale.shape) != (n,):
         raise ValueError(
@@ -442,8 +560,8 @@ def flat_topk_int8_cuda(
     cp = _int8_penalty(n, corpus_valid, qi.device)
     cs = corpus_scale.float().contiguous()
     unused_qn = torch.empty(0, dtype=torch.float32, device=qi.device)
-    sd, si = _launch(qi.contiguous(), corpus_i8, unused_qn, cp, cs, k,
-                     METRIC_CODE[metric], _OP_INT8, "flat_topk_int8")
+    sd, si = _launch(mma_rows(qi, _OP_INT8), corpus_i8, unused_qn, cp, cs,
+                     k, METRIC_CODE[metric], _OP_INT8, "flat_topk_int8")
     return _int8_emit(sd, si, qs, metric)
 
 

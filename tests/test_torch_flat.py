@@ -340,3 +340,94 @@ def test_kernel_launcher_bf16_mode_refuses_cpu_tensors():
         flat_topk_cuda(torch.zeros(2, 8), torch.zeros(5, 8), 3,
                        metric="cosine", precision="int8")
     assert _build.LAUNCHES["flat_topk"] == _build.LAUNCHES["flat_topk_int8"] == 0
+
+
+# ── the tensor-core kernel's host logic (csrc/flat_topk_mma.cu) ──
+
+
+@pytest.mark.parametrize("op", ["bf16", "int8"])
+@pytest.mark.parametrize("d", [1, 100, 384, 768, 5000])
+@pytest.mark.parametrize(
+    "k", [1, 10, 16, 17, 33, 48, 49, 100, 112, 113, 240, 241, 496, 497, 1008,
+          1009, 1024])
+def test_mma_plan_fits_shared_memory_and_holds_k(k, d, op):
+    """The buffer holds k plus one check's columns in the least power of
+    two; the query tile shrinks as the buffer grows, so the buffers take
+    64 KB (128 KB past k = 1008); the queries stay resident where a ring of
+    3 stages still fits, and stream otherwise; the ring is as deep as the
+    rest of the 227 KB allows, 2 to 6 stages."""
+    code = {"bf16": flat_topk_mod._OP_BF16, "int8": flat_topk_mod._OP_INT8}[op]
+    tq, w, stages, a_chunks = flat_topk_mod.mma_plan(k, d, code)
+    check = flat_topk_mod.MMA_CHECK
+    assert w & (w - 1) == 0 and w >= k + check and w // 2 < k + check
+    assert tq == max(8, min(128, 8192 // w))
+    assert tq * w * 8 <= (128 if k > 1008 else 64) * 1024
+    n_chunks = -(-d * (2 if op == "bf16" else 1) // 128)
+    assert a_chunks in (0, n_chunks)
+    assert (3 if a_chunks else 2) <= stages <= flat_topk_mod.MMA_MAX_STAGES
+    limit = flat_topk_mod.SMEM_LIMIT
+    smem = flat_topk_mod.mma_smem_bytes
+    assert smem(tq, w, stages, a_chunks) <= limit
+    assert (stages == flat_topk_mod.MMA_MAX_STAGES
+            or smem(tq, w, stages + 1, a_chunks) > limit)
+    if a_chunks == 0:  # streamed only because resident would not fit
+        assert smem(tq, w, 3, n_chunks) > limit
+
+
+def test_mma_plan_of_the_main_paths():
+    """Two consumer warpgroups (128 queries), resident queries and a deep
+    ring at the main paths: the flat bf16 search (k=10, d=384), the HNSW
+    build's sweep (k = m0 + 1 = 33), int8_rescored's first tier (r=16,
+    d=768); one warpgroup of 8 queries at k = 1024, and queries that
+    stream through the ring at d=768 in bf16."""
+    bf16, int8 = flat_topk_mod._OP_BF16, flat_topk_mod._OP_INT8
+    assert flat_topk_mod.mma_plan(10, 384, bf16) == (128, 32, 5, 6)
+    assert flat_topk_mod.mma_plan(33, 384, bf16) == (128, 64, 3, 6)
+    assert flat_topk_mod.mma_plan(16, 768, int8) == (128, 32, 5, 6)
+    assert flat_topk_mod.mma_plan(1024, 100, int8) == (8, 2048, 5, 1)
+    assert flat_topk_mod.mma_plan(10, 768, bf16) == (128, 32, 5, 0)
+
+
+@pytest.mark.parametrize("k", [0, -3, MAX_K + 1])
+def test_mma_plan_refuses_k_outside_the_kernel(k):
+    with pytest.raises(ValueError, match=f"k <= {MAX_K}"):
+        flat_topk_mod.mma_plan(k, 384, flat_topk_mod._OP_BF16)
+
+
+@pytest.mark.parametrize("d", [1, 63, 64, 65, 100, 384, 768])
+def test_mma_rows_bf16_rounds_and_zero_pads(d):
+    """bf16 rows: rounded to nearest even (the plain version's rounding),
+    zero past d up to a whole 128 bytes."""
+    x = torch.from_numpy(np.random.default_rng(d).standard_normal((5, d))
+                         .astype(np.float32))
+    out = flat_topk_mod.mma_rows(x, flat_topk_mod._OP_BF16)
+    assert out.dtype == torch.bfloat16
+    assert out.shape == (5, -(-d // 64) * 64) and out.is_contiguous()
+    assert torch.equal(out[:, :d].float(), flat_topk_mod._bf16_round(x))
+    assert not out[:, d:].float().any()
+
+
+@pytest.mark.parametrize("d", [1, 100, 127, 128, 129, 768])
+def test_mma_rows_int8_zero_pads(d):
+    x = torch.from_numpy(np.random.default_rng(d).integers(-127, 128, (3, d))
+                         .astype(np.int8))
+    out = flat_topk_mod.mma_rows(x, flat_topk_mod._OP_INT8)
+    assert out.dtype == torch.int8 and out.shape == (3, -(-d // 128) * 128)
+    assert torch.equal(out[:, :d], x) and not out[:, d:].any()
+
+
+@pytest.mark.parametrize("k", [0, MAX_K + 1])
+def test_bf16_launcher_refuses_k_before_a_launch(k):
+    with pytest.raises(ValueError, match=f"k <= {MAX_K}"):
+        flat_topk_cuda(torch.zeros(2, 8), torch.zeros(5, 8), k,
+                       precision="default")
+    assert _build.LAUNCHES["flat_topk"] == _build.LAUNCHES["flat_topk_mma"] == 0
+
+
+@pytest.mark.parametrize("corpus", [torch.zeros(5, 8, dtype=torch.float64),
+                                    torch.zeros(5, 8, dtype=torch.bfloat16),
+                                    torch.zeros(8, 5).T])
+def test_bf16_launcher_refuses_a_corpus_it_would_copy(corpus):
+    with pytest.raises(ValueError, match="contiguous float32 corpus"):
+        flat_topk_cuda(torch.zeros(2, 8), corpus, 3, precision="bfloat16")
+    assert _build.LAUNCHES["flat_topk_mma"] == 0

@@ -565,3 +565,21 @@ def test_default_device_is_the_card(make):
         pytest.skip("a CUDA device is present: the default lands on it")
     with pytest.raises(RuntimeError, match="device='cpu'"):
         DEFAULT_DEVICE_CASES[make]()
+
+
+@pytest.mark.parametrize("k", [0, 1025])
+def test_int8_launcher_refuses_k_before_a_launch(k):
+    ci, cs = quantize_rows_int8(torch.ones(5, 8))
+    with pytest.raises(ValueError, match="k <= 1024"):
+        flat_topk_int8_cuda(torch.zeros(2, 8), ci, cs, k)
+    assert _build.LAUNCHES["flat_topk_int8"] == _build.LAUNCHES["flat_topk_mma"] == 0
+
+
+@pytest.mark.parametrize("corpus", [torch.ones(5, 8), torch.ones(5, 8, dtype=torch.int16),
+                                    torch.ones(8, 5, dtype=torch.int8).T])
+def test_int8_launcher_refuses_a_corpus_it_cannot_read_in_place(corpus):
+    """A corpus of another type, or strided, raises before the device is
+    looked at: the kernel reads the int8 rows in place."""
+    with pytest.raises(ValueError, match="contiguous int8 corpus"):
+        flat_topk_int8_cuda(torch.zeros(2, 8), corpus, torch.ones(5), 3)
+    assert _build.LAUNCHES["flat_topk_int8"] == _build.LAUNCHES["flat_topk_mma"] == 0
