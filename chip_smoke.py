@@ -17,11 +17,14 @@ Phases, each of which exits non-zero on failure:
    ``ptxas``'s registers and spills, and the tensor-core kernel's shared
    memory at the main paths' plans; count the tensor-core instructions in
    its SASS (``cuobjdump -sass``: HGMMA for bf16, IGMMA for s8, both
-   required);
-3. hold the kernel against its plain PyTorch version on the card, on
-   unit-norm Gaussian rows: all three metrics, a 30% validity mask, ragged
-   B and N, d in {100, 384, 768}, k in {1, 10, 100, 1024}, including k
-   above the live row count;
+   required); hold the f32 kernel to 0 spill bytes (``ptxas``) and to FFMA
+   with no HMMA or HGMMA in its SASS;
+3. hold the f32 kernel against its plain PyTorch version on the card, on
+   unit-norm Gaussian rows: all three metrics, d in {37, 100, 384, 768}
+   (37 takes the 4-byte copy path), k in {1, 10, 33, 100, 1024}, each
+   masked (30%) and unmasked, B cycling through {1, 127, 128, 129, 300}
+   (around the 128-query tile) and N as in phase 6 (off the 256-row tile
+   and, last, below k): 120 cases;
 4. the main path at the headline shape of ``bench.py``: a cosine
    ``FlatIndex`` of 100,000 x 384 clustered rows, insert, search 8,192
    queries at k=10, delete 1,000 ids, search again; both searches held
@@ -29,10 +32,12 @@ Phases, each of which exits non-zero on failure:
    equal up to float64 ties), no deleted id returned, and the kernel's
    launches counted over exactly this run; then kernel, plain and the
    library call (one f32 matmul, TF32 off, and ``torch.topk``) timed, and
-   the matmul alone (``gemm_ms``); no launch of the tensor-core kernel;
+   the matmul alone (``gemm_ms``); no launch of the tensor-core kernel; the
+   kernel held to be faster than the library call and than plain;
 5. 1,000,000 x 768 cosine, 1,024 queries, k=10: one search through the
-   index, held against the plain version the same way; kernel, plain and
-   the library call of phase 4 timed;
+   index, held against the plain version the same way; kernel, plain, the
+   library call of phase 4 and its matmul alone (``gemm_ms_1m_768``) timed;
+   the kernel held to be faster than the library call and than plain;
 6. the tensor-core kernel's int8 mode (``flat_topk_int8``) against its
    plain version: cosine and inner product, d in {100, 384, 768}, k in {1,
    10, 33, 100, 1024}, each masked (30%) and unmasked, B cycling through
@@ -105,11 +110,12 @@ Phases, each of which exits non-zero on failure:
    held as in phase 10, recall within 0.01 of phase 10's fused search, timed
    beside it; the kernel against plain on one 2,816-query chunk;
 14. the ``gather_rows`` kernel against ``table[idx]``: f32, bf16 and int8,
-   d in {100, 384, 768}, M in {0, 1, 1000, 4,099}, bitwise equal, and rows
-   outside the table filled with 0xFF bytes; then one ``gather_rows`` of
-   the HNSW rescore's shape (8,192 x 24 random rows of phase 4's 100k x 384
-   f32 rows) with its launch counted, timed against plain and
-   ``torch.index_select``.
+   d in {100, 384, 768}, M in {0, 1, 7, 1000, 4,099, 65,537}, bitwise
+   equal, and rows outside the table filled with 0xFF bytes; then one
+   ``gather_rows`` of the HNSW rescore's shape (8,192 x 24 random rows of
+   phase 4's 100k x 384 f32 rows) with its launch counted, timed against
+   plain and ``torch.index_select`` (printed side by side, no hard check:
+   the two move by about 10% between calls).
 
 Each kernel's record carries its bound: the larger of the operations over
 the card's peak rate for their type and the bytes (each input read once,
@@ -124,6 +130,7 @@ from __future__ import annotations
 
 import itertools
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -145,9 +152,11 @@ MIN_RESCORED_RECALL = 0.98   # int8_rescored, r=16, against exact
 MIN_QUANTIZED_RECALL = 0.90  # QuantizedFlatIndex, int8-only ranking
 # the tensor-core kernel's cases (phases 6 and 9): k across its buffer
 # widths up to MAX_K, B around one warpgroup's 64 rows, N off the 128-row
-# tile and, last, below k
+# tile and, last, below k; the f32 kernel's (phase 3): B around its
+# 128-query tile
 MMA_KS = (1, 10, 33, 100, 1024)
 MMA_BS = (1, 63, 64, 65, 300)
+F32_BS = (1, 127, 128, 129, 300)
 # H100 SXM data sheet, dense, at 700 W: FP32 on CUDA cores, bf16 and int8 on
 # tensor cores, HBM bandwidth
 PEAK = {"fp32": 67e12, "bf16": 989e12, "int8": 1979e12}
@@ -315,12 +324,12 @@ def compare_topm(kd, kl, pd, pl, q, picks, packed, metric, big) -> float:
     return float((kd[live] - pd[live]).abs().max()) if bool(live.any()) else 0.0
 
 
-def mma_shape(case: int, k: int) -> tuple[int, int]:
-    """(B, N) of the tensor-core kernel's ``case``-th comparison at ``k``:
-    B cycles through MMA_BS and N through 5003, 20011, 9001, 900 and
-    k/2 + 1, so that 25 consecutive cases meet every pair."""
+def mma_shape(case: int, k: int, bs=MMA_BS) -> tuple[int, int]:
+    """(B, N) of a flat kernel's ``case``-th comparison at ``k``: B cycles
+    through ``bs`` and N through 5003, 20011, 9001, 900 and k/2 + 1, so that
+    25 consecutive cases meet every pair."""
     ns = (5003, 20011, 9001, 900, k // 2 + 1)
-    return MMA_BS[case % len(MMA_BS)], ns[(case // len(MMA_BS)) % len(ns)]
+    return bs[case % len(bs)], ns[(case // len(bs)) % len(ns)]
 
 
 def grid_rows(rng, n: int, d: int) -> np.ndarray:
@@ -461,33 +470,41 @@ def main() -> int:
     print(f"  flat_topk_mma SASS: {n_hgmma} HGMMA (bf16), {n_igmma} IGMMA (s8)")
     check(n_hgmma > 0 and n_igmma > 0,
           "the tensor-core kernel's SASS lacks HGMMA or IGMMA")
+    # highest stays exact f32 on CUDA cores: fmaf, no tensor-core instruction
+    plan = flat_topk_mod.f32_plan(10, 8192)
+    print(f"  flat_topk plan at k=10, B=8,192: (tq, w, stages) {plan},"
+          f" {flat_topk_mod.f32_smem_bytes(*plan)} bytes of dynamic shared memory")
+    f32_log = _build.BUILD_LOGS.get("flat_topk")
+    if f32_log is None:
+        print("  flat_topk: library built by an earlier run, no ptxas log to read")
+    else:
+        spills = [int(v) for v in re.findall(r"(\d+) bytes spill", f32_log)]
+        check(bool(spills) and not any(spills), "ptxas spilled in flat_topk")
+    f32_so = _build.build(["flat_topk"])["flat_topk"]
+    sass = subprocess.run([str(cuobjdump), "-sass", str(f32_so)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    n_ffma, n_mma = sass.count("FFMA"), sass.count("HMMA") + sass.count("HGMMA")
+    print(f"  flat_topk SASS: {n_ffma} FFMA, {n_mma} HMMA/HGMMA")
+    check(n_ffma > 0 and n_mma == 0, "the f32 kernel's SASS is not FFMA alone")
     sys.stdout.flush()
 
-    # 3. kernel vs plain on the card
+    # 3. the f32 kernel vs plain on the card
     rng = np.random.default_rng(1)
     max_err = 0.0
     n_cases = 0
-    shapes = ((1, 5003), (37, 20011), (300, 9001), (65, 900))
-    for mi, metric in enumerate(METRICS):
-        for di, d in enumerate((100, 384, 768)):
-            for ki_, k in enumerate((1, 10, 100, 1024)):
-                b, n = shapes[(mi + di + ki_) % len(shapes)]
-                q = unit_rows(rng.standard_normal((b, d), dtype=np.float32))
-                c = unit_rows(rng.standard_normal((n, d), dtype=np.float32))
-                masked = (mi + di + ki_) % 2 == 0 or n == 900
-                valid = rng.random(n) >= 0.3 if masked else None
-                qt = torch.from_numpy(q).cuda()
-                ct = torch.from_numpy(c).cuda()
-                vt = torch.from_numpy(valid).cuda() if masked else None
-                kd, kid = flat_topk_cuda(qt, ct, k, metric=metric,
-                                         corpus_valid=vt)
-                torch.cuda.synchronize()
-                pd, pid = flat_topk_plain(qt, ct, k, metric=metric,
-                                          corpus_valid=vt)
-                torch.cuda.synchronize()
-                err = compare(kd, kid, pd, pid, qt, ct, vt, metric)
-                max_err = max(max_err, err)
-                n_cases += 1
+    for case, (metric, d, k, masked) in enumerate(itertools.product(
+            METRICS, (37, 100, 384, 768), MMA_KS, (False, True))):
+        b, n = mma_shape(case, k, F32_BS)
+        qt = torch.from_numpy(unit_rows(
+            rng.standard_normal((b, d), dtype=np.float32))).cuda()
+        ct = torch.from_numpy(unit_rows(
+            rng.standard_normal((n, d), dtype=np.float32))).cuda()
+        vt = torch.from_numpy(rng.random(n) >= 0.3).cuda() if masked else None
+        kd, kid = flat_topk_cuda(qt, ct, k, metric=metric, corpus_valid=vt)
+        torch.cuda.synchronize()
+        pd, pid = flat_topk_plain(qt, ct, k, metric=metric, corpus_valid=vt)
+        max_err = max(max_err, compare(kd, kid, pd, pid, qt, ct, vt, metric))
+        n_cases += 1
     print(f"kernel vs plain: {n_cases} cases agree, max |d| error {max_err:.3g}",
           flush=True)
 
@@ -555,6 +572,9 @@ def main() -> int:
           f" plain {plain_ms:.3f} ms ({nq / plain_ms * 1e3:.0f} QPS), library"
           f" {library_ms:.3f} ms (its f32 matmul alone {gemm_ms:.3f} ms);"
           f" bound {f32_bound:.3f} ms ({f32_bound_by})", flush=True)
+    check(ms < library_ms and ms < plain_ms,
+          f"highest at 100k x 384: kernel {ms} ms, not faster than the library"
+          f" call's {library_ms} ms and plain's {plain_ms} ms")
     del index, corpus, valid, qg, pd, pd1
     torch.cuda.empty_cache()
 
@@ -580,12 +600,19 @@ def main() -> int:
     plain_ms5 = device_ms(lambda: flat_topk_plain(q5, c5, k, metric="cosine",
                                                   corpus_valid=v5))
     library_ms5 = device_ms(lambda: f32_library(q5, c5, v5, k))
-    bound5, _ = bound(2.0 * nq5 * n5 * d5, "fp32",
-                      4.0 * (n5 + nq5) * d5 + n5 + 8.0 * nq5 * k)
+    qu, cu = unit_t(q5), unit_t(c5)
+    gemm_ms5 = device_ms(lambda: exact_f32_dots(qu, cu))
+    del qu, cu
+    flops5 = 2.0 * nq5 * n5 * d5
+    bound5, _ = bound(flops5, "fp32", 4.0 * (n5 + nq5) * d5 + n5 + 8.0 * nq5 * k)
     print(f"1M x 768, {nq5} queries, k={k}: kernel {ms5:.3f} ms"
-          f" ({nq5 / ms5 * 1e3:.0f} QPS), plain {plain_ms5:.3f} ms"
-          f" ({nq5 / plain_ms5 * 1e3:.0f} QPS), library {library_ms5:.3f} ms;"
+          f" ({nq5 / ms5 * 1e3:.0f} QPS, {flops5 / ms5 / 1e9:.2f} TFLOP/s), plain"
+          f" {plain_ms5:.3f} ms ({nq5 / plain_ms5 * 1e3:.0f} QPS), library"
+          f" {library_ms5:.3f} ms (its f32 matmul alone {gemm_ms5:.3f} ms);"
           f" bound {bound5:.3f} ms", flush=True)
+    check(ms5 < library_ms5 and ms5 < plain_ms5,
+          f"highest at 1M x 768: kernel {ms5} ms, not faster than the library"
+          f" call's {library_ms5} ms and plain's {plain_ms5} ms")
     torch.cuda.empty_cache()
     del pd5
 
@@ -1204,7 +1231,7 @@ def main() -> int:
         for d14 in (100, 384, 768):
             t14 = torch.randn(20011, d14, generator=gen, device="cuda") * 40
             t14 = t14.round().clamp(-127, 127).to(dtype)
-            for m14 in (0, 1, 1000, 4099):
+            for m14 in (0, 1, 7, 1000, 4099, 65537):
                 i14 = torch.randint(0, 20011, (m14,), generator=gen, device="cuda",
                                     dtype=torch.int32)
                 k14 = gather_rows_cuda(t14, i14)
@@ -1256,6 +1283,7 @@ def main() -> int:
         "plain_ms_1m_768": plain_ms5,
         "bound_ms_1m_768": bound5,
         "library_ms_1m_768": library_ms5,
+        "gemm_ms_1m_768": gemm_ms5,
     }, {
         "name": "flat_topk_bf16",
         "route": "cuda",

@@ -14,10 +14,14 @@
 //
 // What bounds it on an H100: device-memory bytes, M * row bytes read and
 // written (plus 4 B of index per row) and no arithmetic. What the design does
-// about it: one warp per row, 8 rows per block, grid-stride; lanes move the
-// row with 16-byte loads and stores, neighbouring lanes on neighbouring
-// addresses, when the table, the output and the row width are 16-byte
-// aligned, else one element per lane per step (still coalesced).
+// about it: as many bytes in flight as the card holds. The output is one
+// flat stream of M * units units (16 bytes where the table, the output and
+// the row width are 16-byte aligned, else one element); thread e moves unit
+// e % units of row e / units, neighbouring threads on neighbouring
+// addresses, and starts the loads of four units a grid apart before any of
+// their stores. So every SM keeps thousands of independent loads in flight
+// whatever the row width, and rows never wait on one another (a warp per
+// row moved a 1,536-byte row as 3 loads a lane, one after another's store).
 //
 // Interface: plain C functions, loaded with ctypes. The launcher runs on the
 // caller's stream, allocates nothing, does not synchronise, and returns
@@ -29,31 +33,37 @@
 namespace {
 
 constexpr int kThreads = 256;
-constexpr int kWarps = kThreads / 32;
+constexpr int kInFlight = 4;  // units a thread loads before it stores
 
 __device__ __forceinline__ void all_ones(uint4& u) { u = make_uint4(~0u, ~0u, ~0u, ~0u); }
 __device__ __forceinline__ void all_ones(uint32_t& u) { u = ~0u; }
 __device__ __forceinline__ void all_ones(uint16_t& u) { u = 0xffffu; }
 __device__ __forceinline__ void all_ones(uint8_t& u) { u = 0xffu; }
 
-// U is the unit a lane moves: uint4 (16 bytes) or the element's own width.
+// U is the unit a thread moves: uint4 (16 bytes) or the element's own width.
 template <typename U>
 __global__ void __launch_bounds__(kThreads)
 gather_rows_kernel(const U* __restrict__ table, const int* __restrict__ idx,
                    U* __restrict__ out, long long M, int N, int units) {
-  const int lane = threadIdx.x & 31;
-  const long long stride = (long long)gridDim.x * kWarps;
-  for (long long i = (long long)blockIdx.x * kWarps + (threadIdx.x >> 5); i < M;
-       i += stride) {
-    const int id = idx[i];  // uniform across the warp
-    U* dst = out + i * units;
-    if (id >= 0 && id < N) {
-      const U* src = table + (size_t)id * units;
-      for (int u = lane; u < units; u += 32) dst[u] = __ldg(src + u);
-    } else {
-      U fill;
-      all_ones(fill);
-      for (int u = lane; u < units; u += 32) dst[u] = fill;
+  const long long total = M * units;
+  const long long stride = (long long)gridDim.x * kThreads;
+  for (long long e0 = (long long)blockIdx.x * kThreads + threadIdx.x; e0 < total;
+       e0 += kInFlight * stride) {
+    U v[kInFlight];
+#pragma unroll
+    for (int t = 0; t < kInFlight; ++t) {
+      const long long e = e0 + t * stride;
+      if (e >= total) continue;
+      const long long row = e / units;
+      const int u = (int)(e - row * units);
+      const int id = __ldg(idx + row);
+      if (id >= 0 && id < N) v[t] = __ldg(table + (size_t)id * units + u);
+      else all_ones(v[t]);
+    }
+#pragma unroll
+    for (int t = 0; t < kInFlight; ++t) {
+      const long long e = e0 + t * stride;
+      if (e < total) out[e] = v[t];
     }
   }
 }
@@ -61,7 +71,7 @@ gather_rows_kernel(const U* __restrict__ table, const int* __restrict__ idx,
 template <typename U>
 cudaError_t launch(const void* table, const int* idx, void* out, long long M,
                    int N, int units, cudaStream_t stream) {
-  const long long blocks = (M + kWarps - 1) / kWarps;
+  const long long blocks = (M * units + kInFlight * kThreads - 1) / (kInFlight * kThreads);
   const int grid = (int)(blocks < 65535LL * 64 ? blocks : 65535LL * 64);
   gather_rows_kernel<U><<<grid, kThreads, 0, stream>>>(
       static_cast<const U*>(table), idx, static_cast<U*>(out), M, N, units);

@@ -3,7 +3,8 @@
 Each ``csrc/<name>.cu`` exposes plain ``extern "C"`` functions. The first
 call to ``library(name)`` compiles it with ``nvcc`` for ``sm_90a`` into a
 shared library under ``build/kernels/`` at the root of the checkout, named
-by a hash of the source, the flags and ``nvcc --version``, and loads it
+by a hash of the source, the package's headers (``csrc/*.cuh``), the flags
+and ``nvcc --version``, and loads it
 with ``ctypes``; a later process with the same toolkit finds the library
 there and skips the build. ``load_all(names)`` starts one ``nvcc`` for
 each missing library at once and waits for all of them. Importing this
@@ -35,6 +36,7 @@ LAUNCHES: dict[str, int] = {"flat_topk": 0, "flat_topk_int8": 0,
                             "beam_topm": 0, "beam_loop": 0, "gather_rows": 0}
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
+HEADER_DIR = CSRC_DIR  # csrc/*.cuh, found with -I wherever a source lies
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "kernels"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
@@ -81,17 +83,20 @@ def build(names: list[str]) -> dict[str, Path]:
         [nvcc, "--version"], capture_output=True, text=True, check=True,
         timeout=60,
     ).stdout
+    headers = b"".join(h.read_bytes() for h in sorted(HEADER_DIR.glob("*.cuh")))
     paths, todo = {}, []
     for name in names:
         src = CSRC_DIR / f"{name}.cu"
         digest = hashlib.sha256(
-            src.read_bytes() + "\0".join((*NVCC_FLAGS, version)).encode()
+            src.read_bytes() + headers
+            + "\0".join((*NVCC_FLAGS, version)).encode()
         ).hexdigest()[:16]
         out = paths[name] = BUILD_DIR / f"{name}-{digest}.so"
         if not out.is_file():
             tmp = out.with_name(f"{out.name}.{os.getpid()}.tmp")
-            todo.append((name, [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                         tmp, out))
+            cmd = [nvcc, *NVCC_FLAGS, "-I", str(HEADER_DIR), "-o", str(tmp),
+                   str(src)]
+            todo.append((name, cmd, tmp, out))
     if todo:
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
     failed, running = [], []

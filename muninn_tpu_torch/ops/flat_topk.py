@@ -12,11 +12,12 @@ Port of ``muninn_tpu/ops/pallas_flat.py``:
   ``flat_topk_proj_rescored`` (an int8 retrieve of ``r`` candidates, then an
   exact f32 rescore), and ``proj_basis``.
 
-Two kernels replace the branches of ``_flat_topk_kernel``: the f32
-``highest`` mode runs on CUDA cores (``csrc/flat_topk.cu``), the bf16 and
-int8 modes on the tensor cores with the top-k beside the accumulators
-(``csrc/flat_topk_mma.cu``). The plain versions ``flat_topk_plain`` and
-``flat_topk_int8_plain`` mirror ``_xla_topk``.
+Two kernels replace the branches of ``_flat_topk_kernel``, each with the
+top-k beside its accumulators: the f32 ``highest`` mode runs on CUDA cores
+(``csrc/flat_topk.cu``, its tiling chosen by ``f32_plan``), the bf16 and
+int8 modes on the tensor cores (``csrc/flat_topk_mma.cu``, ``mma_plan``).
+The plain versions ``flat_topk_plain`` and ``flat_topk_int8_plain`` mirror
+``_xla_topk``.
 
 The wrappers pick the path by the tensors' device: CPU tensors go to the
 plain version, CUDA tensors to the kernel. On a CUDA tensor there is no
@@ -57,6 +58,60 @@ MMA_TILE_ROWS = 128
 MMA_CHECK = 16
 MMA_MAX_STAGES = 6
 SMEM_LIMIT = 232448
+
+# csrc/flat_topk.cu's geometry: corpus rows per tile, features per stage and
+# the words of one staged row (the features and 4 words of pad), the query
+# tiles it is built for, and its ring depths.
+F32_TILE_ROWS = 256
+F32_ROW_WORDS = 32 + 4
+F32_QUERY_TILES = (128, 64, 32, 16, 8)
+F32_MIN_STAGES, F32_MAX_STAGES = 2, 4
+
+
+def f32_check_cols(tq: int) -> int:
+    """Columns a query row can gain in one of the f32 kernel's checks: the
+    lanes of a warp that share its rows (16 when a warp owns two or more
+    query rows, else 32)."""
+    return 16 if tq >= 16 else 32
+
+
+def f32_plan(k: int, b: int) -> tuple[int, int, int]:
+    """The f32 kernel's tiling for ``k`` and ``b`` queries: ``(tq, w,
+    stages)``.
+
+    ``w``, the per-query buffer (top-k, then candidates), is the least power
+    of two holding k plus one check's columns; ``tq``, the queries per
+    block, is the largest of 128, 64, 32, 16 and 8 that is not above b's
+    power of two (a small batch multiplies no empty query rows) and whose
+    buffers leave room for a ring of 3 stages, else of ``F32_MIN_STAGES``
+    (at k near 1,024); ``stages``: as many as fit, at most
+    ``F32_MAX_STAGES``. A stage holds 32 features of any d, so the plan does
+    not depend on d."""
+    _check_k(k)
+    most = max(F32_QUERY_TILES[-1], 1 << (max(b, 1) - 1).bit_length())
+    for least in (3, F32_MIN_STAGES):
+        for tq in F32_QUERY_TILES:
+            if tq > most:
+                continue
+            w = 1 << (k + f32_check_cols(tq) - 1).bit_length()
+            room = SMEM_LIMIT - f32_smem_bytes(tq, w, 0)
+            stages = min(F32_MAX_STAGES, max(room, 0) // _f32_stage_bytes(tq))
+            if stages >= least:
+                return tq, w, stages
+    raise ValueError(f"no f32 plan fits k={k}")
+
+
+def _f32_stage_bytes(tq: int) -> int:
+    """One ring stage: 32 features of the query tile and the corpus tile,
+    and a tile's penalty and cosine scale rows."""
+    return (tq + F32_TILE_ROWS) * F32_ROW_WORDS * 4 + 2 * F32_TILE_ROWS * 4
+
+
+def f32_smem_bytes(tq: int, w: int, stages: int) -> int:
+    """Dynamic shared memory of one f32 block (``smem_bytes`` in the
+    source): the ring, the per-query buffers ``[tq, w]`` of (f32, int32),
+    counts and thresholds."""
+    return stages * _f32_stage_bytes(tq) + tq * w * 8 + tq * 8
 
 
 def mma_plan(k: int, d: int, op: int) -> tuple[int, int, int, int]:
@@ -233,11 +288,16 @@ def _library() -> ctypes.CDLL:
     if _LIB is None:
         lib = _build.library("flat_topk")
         ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.flat_topk_launch.argtypes = [ptr] * 7 + [i32] * 7 + [ptr]
+        lib.flat_topk_launch.argtypes = [ptr] * 7 + [i32] * 10 + [ptr]
         lib.flat_topk_launch.restype = i32
-        lib.flat_topk_splits.argtypes = [i32] * 4
+        lib.flat_topk_splits.argtypes = [i32] * 7
         lib.flat_topk_splits.restype = i32
+        lib.flat_topk_smem_bytes.argtypes = [i32] * 3
+        lib.flat_topk_smem_bytes.restype = ctypes.c_longlong
         _bind_common(lib, "flat_topk")
+        _check_smem(lib.flat_topk_smem_bytes, f32_smem_bytes, "flat_topk",
+                    [f32_plan(k, 8192) for k in (1, 10, 33, 100, 1009, MAX_K)]
+                    + [f32_plan(10, b) for b in (1, 9, 33, 64)])
         _LIB = lib
     return _LIB
 
@@ -255,16 +315,21 @@ def _mma_library() -> ctypes.CDLL:
         lib.flat_topk_mma_smem_bytes.argtypes = [i32] * 4
         lib.flat_topk_mma_smem_bytes.restype = ctypes.c_longlong
         _bind_common(lib, "flat_topk_mma")
-        for k, d in ((1, 100), (16, 768), (33, 384), (100, 768), (MAX_K, 384)):
-            plan = mma_plan(k, d, _OP_BF16)
-            if lib.flat_topk_mma_smem_bytes(*plan) != mma_smem_bytes(*plan):
-                raise RuntimeError(
-                    f"csrc/flat_topk_mma.cu asks {lib.flat_topk_mma_smem_bytes(*plan)}"
-                    f" bytes of shared memory for plan {plan}, flat_topk.py"
-                    f" counts {mma_smem_bytes(*plan)}"
-                )
+        _check_smem(lib.flat_topk_mma_smem_bytes, mma_smem_bytes, "flat_topk_mma",
+                    [mma_plan(k, d, _OP_BF16) for k, d in (
+                        (1, 100), (16, 768), (33, 384), (100, 768), (MAX_K, 384))])
         _MMA_LIB = lib
     return _MMA_LIB
+
+
+def _check_smem(in_source, in_python, prefix: str, plans) -> None:
+    """The source's shared-memory count of each plan must be Python's."""
+    for plan in plans:
+        if in_source(*plan) != in_python(*plan):
+            raise RuntimeError(
+                f"csrc/{prefix}.cu asks {in_source(*plan)} bytes of shared"
+                f" memory for plan {plan}, flat_topk.py counts {in_python(*plan)}"
+            )
 
 
 def _bind_common(lib: ctypes.CDLL, prefix: str) -> None:
@@ -383,8 +448,8 @@ def _launch(q, c, qn, cp, cs, k: int, mode: int, op: int, name: str):
     dev = q.device
     if op == _OP_F32:
         lib, prefix = _library(), "flat_topk"
-        splits = lib.flat_topk_splits(b, n, k, dev.index)
-        plan = ()
+        plan = f32_plan(k, b)
+        splits = lib.flat_topk_splits(b, n, k, *plan, dev.index)
     else:
         lib, prefix = _mma_library(), "flat_topk_mma"
         plan = (op, *mma_plan(k, d, op))

@@ -431,3 +431,83 @@ def test_bf16_launcher_refuses_a_corpus_it_would_copy(corpus):
     with pytest.raises(ValueError, match="contiguous float32 corpus"):
         flat_topk_cuda(torch.zeros(2, 8), corpus, 3, precision="bfloat16")
     assert _build.LAUNCHES["flat_topk_mma"] == 0
+
+
+# ── the f32 kernel's host logic (csrc/flat_topk.cu, ``highest``) ──
+
+
+@pytest.mark.parametrize("b", [1, 9, 64, 8192])
+@pytest.mark.parametrize(
+    "k", [1, 10, 16, 17, 33, 48, 49, 100, 112, 113, 240, 241, 496, 497, 1008,
+          1009, 1024])
+def test_f32_plan_fits_shared_memory_and_holds_k(k, b):
+    """The buffer is the least power of two holding k plus one check's
+    columns; the query tile is the largest of 128 down to 8, not above b's
+    power of two, that leaves a ring of 3 stages (2 where none does); the
+    ring is as deep as the rest of the 227 KB allows, at most 4. A stage
+    holds 32 features of any d (the ragged tail zero-filled), so d plays no
+    part in the plan."""
+    tq, w, stages = flat_topk_mod.f32_plan(k, b)
+    cols = flat_topk_mod.f32_check_cols(tq)
+    assert tq in flat_topk_mod.F32_QUERY_TILES
+    assert tq == 8 or tq < 2 * b
+    assert w & (w - 1) == 0 and w >= k + cols and w // 2 < k + cols
+    smem = flat_topk_mod.f32_smem_bytes
+    limit = flat_topk_mod.SMEM_LIMIT
+    assert flat_topk_mod.F32_MIN_STAGES <= stages <= flat_topk_mod.F32_MAX_STAGES
+    assert smem(tq, w, stages) <= limit
+    assert stages == flat_topk_mod.F32_MAX_STAGES or smem(tq, w, stages + 1) > limit
+    for other in flat_topk_mod.F32_QUERY_TILES:  # the choice is the first that fits
+        ow = 1 << (k + flat_topk_mod.f32_check_cols(other) - 1).bit_length()
+        if other < 2 * b or other == 8:
+            if stages == 2:
+                assert smem(other, ow, 3) > limit
+            if other > tq:
+                assert smem(other, ow, min(stages, 3)) > limit
+
+
+def test_f32_plan_of_the_main_paths():
+    """The 128-query tile and a 3-stage ring at FlatIndex's exact search
+    (k=10, any batch of more than 64) and at the small k of tune_rescore_r
+    and HNSW's exact path; smaller tiles at larger k and at small batches;
+    8 queries and 2 stages at k = 1024, whose buffers need 128 KB."""
+    assert flat_topk_mod.f32_plan(10, 8192) == (128, 32, 3)
+    assert flat_topk_mod.f32_plan(10, 1024) == (128, 32, 3)
+    assert flat_topk_mod.f32_plan(1, 512) == (128, 32, 3)
+    assert flat_topk_mod.f32_plan(16, 8192) == (128, 32, 3)
+    assert flat_topk_mod.f32_plan(33, 8192) == (64, 64, 4)
+    assert flat_topk_mod.f32_plan(100, 8192) == (64, 128, 3)
+    assert flat_topk_mod.f32_plan(10, 64) == (64, 32, 4)
+    assert flat_topk_mod.f32_plan(10, 1) == (8, 64, 4)
+    assert flat_topk_mod.f32_plan(MAX_K, 8192) == (8, 2048, 2)
+
+
+@pytest.mark.parametrize("k", [0, -3, MAX_K + 1])
+def test_f32_plan_refuses_k_outside_the_kernel(k):
+    with pytest.raises(ValueError, match=f"k <= {MAX_K}"):
+        flat_topk_mod.f32_plan(k, 8192)
+
+
+@pytest.mark.parametrize("case", ["k0", "k1025", "f64", "bf16", "strided", "cpu"])
+def test_f32_launcher_refuses_before_a_build_or_launch(case):
+    """``highest`` on CUDA refuses k outside [1, 1024], a corpus it would
+    have to copy, and CPU tensors, before any library is built or kernel
+    launched."""
+    q, c, k = torch.zeros(2, 8), torch.zeros(5, 8), 3
+    if case == "k0":
+        k = 0
+    elif case == "k1025":
+        k = MAX_K + 1
+    elif case == "f64":
+        c = c.double()
+    elif case == "bf16":
+        c = c.bfloat16()
+    elif case == "strided":
+        c = torch.zeros(8, 5).T
+    match = {"k0": "k <= ", "k1025": "k <= ", "f64": "contiguous float32",
+             "bf16": "contiguous float32", "strided": "strided",
+             "cpu": "CUDA tensors"}[case]
+    with pytest.raises(ValueError, match=match):
+        flat_topk_cuda(q, c, k, metric="cosine")
+    assert "flat_topk" not in _build._LIBS
+    assert _build.LAUNCHES["flat_topk"] == 0

@@ -61,3 +61,25 @@ def test_gather_rows_empty_and_refusals():
     with pytest.raises(ValueError, match="CUDA tensors"):
         gather_rows_cuda(table, torch.zeros(2, dtype=torch.int32))
     assert _build.LAUNCHES["gather_rows"] == 0
+
+
+@pytest.mark.parametrize("m", [7, 65537])
+def test_gather_rows_ragged_m(m):
+    """M off any row block (7, and one past 64 Ki): bitwise ``table[idx]``
+    on every type; at M = 7 also JAX's kernel, padded to its row block."""
+    rng = np.random.default_rng(m)
+    for dtype in ("float32", "bfloat16", "int8"):
+        table = _table(rng, 997, 100, dtype)
+        idx = rng.integers(0, 997, m).astype(np.int32)
+        got = gather_rows(table, torch.from_numpy(idx))
+        want = table.view(torch.uint8 if dtype == "int8" else torch.int16
+                          if dtype == "bfloat16" else torch.int32)
+        assert got.shape == (m, 100) and got.dtype == table.dtype
+        assert torch.equal(got.view(want.dtype), want[torch.from_numpy(idx).long()])
+        if m == 7:
+            jt = jnp.asarray(table.float().numpy()).astype(
+                {"float32": jnp.float32, "bfloat16": jnp.bfloat16, "int8": jnp.int8}[dtype])
+            ref = jax_gather_rows(jt, jnp.asarray(np.pad(idx, (0, 64 - m))), rb=64,
+                                  interpret=True)[:m]
+            np.testing.assert_array_equal(got.float().numpy(),
+                                          np.asarray(ref).astype(np.float32))
