@@ -61,8 +61,11 @@ Phases, each of which exits non-zero on failure:
    library call;
 8. the ``gather_block_dots`` kernel against its plain version: f32, bf16
    and int8 blocks, d in {100, 128, 384, 768}, R0 in {16, 32}, E in {1, 8},
-   B in {1, 37, 300}, 40% dead picks; dots and squared norms within TOL
-   (int8: after the caller's per-neighbour scaling), dead lanes exactly 0;
+   B in {1, 37, 300}, 40% dead picks (144 cases), then R0 in {12, 20} (the
+   widths ``search_degree`` cuts to), E = 3, d in {37, 100, 384} (37 takes
+   the element-wise path; 54 cases); dots and squared norms within TOL
+   (int8: after the caller's per-neighbour scaling), dead lanes exactly 0,
+   and a pick at or above ``cap`` NaN;
 9. the bf16-operand mode of ``flat_topk`` (``precision="default"``, the
    tensor-core kernel) against its plain version: three metrics, d in {100,
    384, 768}, k in {1, 10, 33, 100, 1024}, each masked (30%) and unmasked,
@@ -103,8 +106,10 @@ Phases, each of which exits non-zero on failure:
    2,816-query chunk;
 13. the ``beam_loop`` kernel against its plain version: integer-grid
    vectors (``tests/test_beam_loop.py:186-240``'s recipe) in 12 random
-   geometries over the three metrics, slots bit-equal and distances within
-   1e-6; Gaussian rows over a random graph, beam overlap at least 0.99 on
+   geometries over the three metrics, one at the limits (ef = 1,024,
+   E*R0 = 4,096, B = 3) and one whose query the kernel reads from device
+   memory (d = 60,000), slots bit-equal and distances within 1e-6;
+   Gaussian rows over a random graph, beam overlap at least 0.99 on
    average; then ``beam_whole = True`` on the same index at ef=24, expand=8:
    ``beam_loop`` and not ``beam_dots`` launched over exactly that search,
    held as in phase 10, recall within 0.01 of phase 10's fused search, timed
@@ -796,47 +801,73 @@ def main() -> int:
     rng = np.random.default_rng(6)
     beam_err = 0.0
     n_beam = 0
+
+    def beam_case(dtype, d6, r0, e, b):
+        """One gather_block_dots case: unit rows in ``dtype`` blocks, 40%
+        dead picks; dead lanes exactly 0, the rest within TOL of plain (int8
+        after the caller's per-neighbour scaling). Returns the largest
+        error."""
+        cap = 509
+        blocks = rng.standard_normal((cap, r0, d6), dtype=np.float32)
+        blocks /= np.linalg.norm(blocks, axis=2, keepdims=True)
+        packed = torch.from_numpy(blocks).cuda()
+        if dtype == torch.int8:
+            packed, scales = quantize_rows_int8(packed)
+        else:
+            packed = packed.to(dtype)
+        qb = torch.from_numpy(unit_rows(
+            rng.standard_normal((b, d6), dtype=np.float32))).cuda()
+        picks = rng.integers(0, cap, (b, e)).astype(np.int32)
+        dead = rng.random((b, e)) < 0.4
+        picks[dead] = -1
+        it = torch.from_numpy(picks).cuda()
+        kd6, kc6 = gather_block_dots_cuda(qb, it, packed)
+        torch.cuda.synchronize()
+        pd6, pc6 = gather_block_dots_plain(qb, it, packed)
+        kd6, kc6, pd6, pc6 = (t.cpu().numpy() for t in (kd6, kc6, pd6, pc6))
+        lanes = np.repeat(dead, r0, axis=1)
+        check(bool((kd6[lanes] == 0).all() and (kc6[lanes] == 0).all()),
+              "beam_dots: a dead lane is not 0")
+        if dtype == torch.int8:
+            # the caller's per-neighbour dequantization
+            ps = scales[it.clamp(min=0).long()].reshape(b, e * r0)
+            ps = ps.cpu().numpy()
+            kd6, pd6 = kd6 * ps, pd6 * ps
+            kc6, pc6 = kc6 * ps * ps, pc6 * ps * ps
+        np.testing.assert_allclose(kd6, pd6, rtol=TOL, atol=TOL)
+        np.testing.assert_allclose(kc6, pc6, rtol=TOL, atol=TOL)
+        if dtype == torch.float32 and r0 == 12 and b == 1:
+            # a pick at or above cap: NaN lanes, no read; its live neighbour
+            # pick as plain gives it
+            bad = torch.tensor([[picks[0, 0] if picks[0, 0] >= 0 else 0, cap, -1]],
+                               dtype=torch.int32, device="cuda")
+            kdn, kcn = gather_block_dots_cuda(qb, bad, packed)
+            pdn, pcn = gather_block_dots_plain(qb, bad.clamp(max=cap - 1)[:, :1], packed)
+            check(bool(torch.isnan(kdn[0, r0:2 * r0]).all()
+                       and torch.isnan(kcn[0, r0:2 * r0]).all()),
+                  "beam_dots: a pick at or above cap is not NaN")
+            check(bool((kdn[0, 2 * r0:] == 0).all()), "beam_dots: a dead lane is not 0")
+            torch.testing.assert_close(kdn[:, :r0], pdn, rtol=TOL, atol=TOL)
+            torch.testing.assert_close(kcn[:, :r0], pcn, rtol=TOL, atol=TOL)
+        return max(float(np.abs(kd6 - pd6).max(initial=0)),
+                   float(np.abs(kc6 - pc6).max(initial=0)))
+
     for dtype in (torch.bfloat16, torch.float32, torch.int8):
         for d6 in (100, 128, 384, 768):
             for r0 in (16, 32):
                 for e in (1, 8):
                     for b in (1, 37, 300):
-                        cap = 509
-                        blocks = rng.standard_normal((cap, r0, d6),
-                                                     dtype=np.float32)
-                        blocks /= np.linalg.norm(blocks, axis=2, keepdims=True)
-                        packed = torch.from_numpy(blocks).cuda()
-                        if dtype == torch.int8:
-                            packed, scales = quantize_rows_int8(packed)
-                        else:
-                            packed = packed.to(dtype)
-                        qb = torch.from_numpy(unit_rows(
-                            rng.standard_normal((b, d6), dtype=np.float32))).cuda()
-                        picks = rng.integers(0, cap, (b, e)).astype(np.int32)
-                        dead = rng.random((b, e)) < 0.4
-                        picks[dead] = -1
-                        it = torch.from_numpy(picks).cuda()
-                        kd6, kc6 = gather_block_dots_cuda(qb, it, packed)
-                        torch.cuda.synchronize()
-                        pd6, pc6 = gather_block_dots_plain(qb, it, packed)
-                        kd6, kc6, pd6, pc6 = (t.cpu().numpy()
-                                              for t in (kd6, kc6, pd6, pc6))
-                        lanes = np.repeat(dead, r0, axis=1)
-                        check(bool((kd6[lanes] == 0).all() and (kc6[lanes] == 0).all()),
-                              "beam_dots: a dead lane is not 0")
-                        if dtype == torch.int8:
-                            # the caller's per-neighbour dequantization
-                            ps = scales[it.clamp(min=0).long()].reshape(b, e * r0)
-                            ps = ps.cpu().numpy()
-                            kd6, pd6 = kd6 * ps, pd6 * ps
-                            kc6, pc6 = kc6 * ps * ps, pc6 * ps * ps
-                        np.testing.assert_allclose(kd6, pd6, rtol=TOL, atol=TOL)
-                        np.testing.assert_allclose(kc6, pc6, rtol=TOL, atol=TOL)
-                        beam_err = max(beam_err, float(np.abs(kd6 - pd6).max(initial=0)),
-                                       float(np.abs(kc6 - pc6).max(initial=0)))
+                        beam_err = max(beam_err, beam_case(dtype, d6, r0, e, b))
                         n_beam += 1
+    # search_degree's cut widths, three picks, the element-wise path (d=37)
+    for dtype in (torch.bfloat16, torch.float32, torch.int8):
+        for d6 in (37, 100, 384):
+            for r0 in (12, 20):
+                for b in (1, 37, 300):
+                    beam_err = max(beam_err, beam_case(dtype, d6, r0, 3, b))
+                    n_beam += 1
     print(f"beam_dots kernel vs plain: {n_beam} cases agree, max error"
-          f" {beam_err:.3g}", flush=True)
+          f" {beam_err:.3g}; a pick at or above cap gives NaN", flush=True)
 
     # 9. flat_topk's bf16-operand mode (the tensor-core kernel) vs plain
     bf_err = 0.0
@@ -1109,12 +1140,10 @@ def main() -> int:
     # 13. beam_loop: kernel vs plain, then beam_whole on the same index
     rng = np.random.default_rng(13)
     loop_err, n_grid = 0.0, 0
-    for trial in range(12):
-        metric = METRICS[trial % 3]
-        d13, r0 = (100, 128)[trial % 2], (16, 32)[(trial // 2) % 2]
-        cap, b = int(rng.integers(96, 2000)), int(rng.integers(1, 300))
-        ef13, expand = int(rng.integers(4, 65)), int(rng.integers(1, 9))
-        patience, mi13 = int(rng.integers(1, 16)), int(rng.integers(0, 8))
+
+    def loop_case(metric, d13, r0, cap, b, ef13, expand, patience, mi13) -> float:
+        """One beam_loop geometry on integer-grid rows: slots bit-equal to
+        plain, distances within 1e-6. Returns the largest error."""
         v16 = torch.from_numpy(grid_rows(rng, cap, d13)).cuda().bfloat16()
         nb13 = torch.from_numpy(rng.integers(-1, cap, (cap, r0)).astype(np.int32)).cuda()
         q13 = torch.from_numpy(grid_rows(rng, b, d13)).cuda()
@@ -1132,13 +1161,32 @@ def main() -> int:
         kd13, ki13 = beam_loop_cuda(*args13)
         torch.cuda.synchronize()
         pd13, pi13, _, _ = beam_loop_plain(*args13)
-        check(torch.equal(ki13, pi13), f"beam_loop: slots differ on grid rows ({trial})")
+        check(torch.equal(ki13, pi13),
+              f"beam_loop: slots differ on grid rows ({metric}, d={d13}, R0={r0},"
+              f" ef={ef13}, expand={expand})")
         fin = torch.isfinite(pd13)
         check(torch.equal(torch.isfinite(kd13), fin), "beam_loop: inf pattern differs")
         torch.testing.assert_close(kd13[fin], pd13[fin], rtol=1e-6, atol=1e-6)
-        if bool(fin.any()):
-            loop_err = max(loop_err, float((kd13[fin] - pd13[fin]).abs().max()))
+        return float((kd13[fin] - pd13[fin]).abs().max()) if bool(fin.any()) else 0.0
+
+    for trial in range(12):
+        metric = METRICS[trial % 3]
+        d13, r0 = (100, 128)[trial % 2], (16, 32)[(trial // 2) % 2]
+        cap, b = int(rng.integers(96, 2000)), int(rng.integers(1, 300))
+        ef13, expand = int(rng.integers(4, 65)), int(rng.integers(1, 9))
+        patience, mi13 = int(rng.integers(1, 16)), int(rng.integers(0, 8))
+        loop_err = max(loop_err, loop_case(metric, d13, r0, cap, b, ef13, expand,
+                                           patience, mi13))
         n_grid += 1
+    # the limits: ef = MAX_EF, E*R0 = MAX_CANDIDATES (128 picks of 32 rows);
+    # then a query too wide for shared memory beside the rest, which the
+    # kernel reads from device memory
+    loop_err = max(loop_err, loop_case("l2", 128, 32, 3000, 3, beam_loop_mod.MAX_EF,
+                                       128, 0, 6))
+    check(not beam_loop_mod._plan(60_000, 24, 4, 16)[1],
+          "beam_loop: d = 60,000 keeps the query in shared memory")
+    loop_err = max(loop_err, loop_case("inner_product", 60_000, 16, 64, 2, 24, 4, 0, 4))
+    n_grid += 2
     # Gaussian rows over a random 32-regular graph: only summation order differs
     cap, d13, b = 5000, 384, 300
     v16 = unit_t(torch.randn(cap, d13, generator=gen, device="cuda")).bfloat16()
@@ -1329,6 +1377,8 @@ def main() -> int:
         "ms_int8": beam8_ms,
         "plain_ms_int8": beam8_plain_ms,
         "bound_ms_int8": beam8_bound_ms,
+        "bound_share": beam_bound_ms / beam_ms,
+        "bound_share_int8": beam8_bound_ms / beam8_ms,
     }, {
         "name": "beam_topm",
         "route": "cuda",
@@ -1341,6 +1391,7 @@ def main() -> int:
         "bound_ms": topm_bound_ms,
         "bound_by": topm_bound_by,
         "library_ms": None,
+        "bound_share": topm_bound_ms / topm_ms,
         "search_ms": topm_search_ms,
         "fused_search_ms": fused12_ms,
         "recall": topm_recall,
@@ -1357,6 +1408,7 @@ def main() -> int:
         "bound_by": loop_bound_by,
         "library_ms": None,
         "bound_ms_all_blocks": loop_bound_blocks_ms,
+        "bound_share": loop_bound_ms / loop_ms,
         "expansions": n_exp,
         "fresh_rows": fresh,
         "search_ms": whole_search_ms,

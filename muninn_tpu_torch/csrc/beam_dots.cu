@@ -23,26 +23,32 @@
 // B*E*R0*D*itemsize of packed blocks (8,192 x 8 x 32 x 384 x 2 B = 1.6 GB
 // per beam iteration at the HNSW bench shape, about 0.5 ms at 3.35 TB/s)
 // and does 4 flops per element, far below the ridge; int8 blocks halve the
-// bytes of bf16 ones. What the design does
-// about it:
-//   - One block per query, 8 warps. The query row is read once into shared
-//     memory as f32; each warp walks rows j = warp, warp + 8, ... of the
-//     query's E*R0 rows, so E blocks' worth of rows share one query load.
-//   - One warp per row: lanes read the row with 16-byte loads, neighbouring
-//     lanes on neighbouring addresses (a 768-byte bf16 row at D=384 is 48
-//     loads, fully coalesced), when every row starts 16-byte aligned (base
-//     aligned and D*itemsize a multiple of 16). Otherwise lanes read single
-//     elements, still coalesced; no shape is refused or padded.
-//   - f32 accumulation with fmaf, one warp-shuffle reduction per row.
-//   - A dead pick costs one id read: the TPU kernel's per-pick skip.
+// bytes of bf16 ones. A block's rows are independent, so what keeps the
+// card from its memory rate is rows in flight. What the design does about
+// it:
+//   - One block per query, 4 warps (more, smaller blocks an SM hide more
+//     of each block's start and tail than 8 warps did:
+//     tools/probes/beam_probe.py). The query row is read once into shared
+//     memory as f32, and the query's E pick ids beside it (when they fit),
+//     so no row waits on an id load.
+//   - The rows go through block_rows.cuh: L lanes share a row, up to 8
+//     16-byte loads a lane (4 lanes for an int8 row of D = 384, 8 for bf16,
+//     16 for f32: every lane loads), a warp takes 32 / L rows of each of
+//     two groups at once and issues all of their loads, neighbouring lanes
+//     on neighbouring addresses, before any multiply-add; one shuffle tree
+//     of log2(L) steps then sums them all. Rows that are not 16-byte aligned (base unaligned or
+//     D*itemsize not a multiple of 16) are read one element a lane; no
+//     shape is refused or padded.
+//   - f32 accumulation with fmaf; int8 elements become floats by a byte
+//     permute and one subtraction, their squared norms are __dp4a sums.
+//   - A dead pick issues no load.
 // There is no id budget or chunking as on the TPU (pallas_beam.py:187-207):
-// each block reads its own ids. Overlapping the loads of the next rows with
-// the reduction of this one (cp.async or TMA pipelining) is later work.
+// each block reads its own ids.
 //
 // Top-m mode (`beam_topm`). Replaces: pallas_beam.py `_beam_topm_kernel`
 // (:214-312), launched through `gather_block_topm` (:315-419, pallas_call
-// at :373), for f32 and bf16 blocks. The same one-block-per-query,
-// one-warp-per-row gather and dot (`row_dot`), then in the kernel:
+// at :373), for f32 and bf16 blocks. The same gather and dots, then in the
+// kernel:
 //   dist[b, e, r] = metric(dot, cn2, qn2[b]) + pen[b, e*R0 + r]
 // with the steps of ops/beam.py packed_distances, each rounded once
 // (__fadd_rn & co., so no FMA contraction moves a rounding), kept in shared
@@ -65,89 +71,35 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "block_rows.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
+constexpr int kGroups = 2;           // row groups a warp loads at once
+constexpr int kUnits = 8;            // 16-byte loads a lane and row at once
 constexpr size_t kMaxSmem = 232448;  // an H100 block's shared memory
 constexpr float kBig = 3.0e38f;      // the top-m mask, ops/beam.py BIG
 
-__device__ __forceinline__ float to_f32(float v) { return v; }
-__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
-  return __bfloat162float(v);
-}
-__device__ __forceinline__ float to_f32(int8_t v) {
-  return static_cast<float>(v);
-}
-
-// Four packed words as floats: 4 f32, 8 bf16 or 16 int8 (little-endian:
-// the low half, or byte, of each word is the lower element).
-__device__ __forceinline__ void unpack(const uint4& w, float* out,
-                                       const float*) {
-  out[0] = __uint_as_float(w.x); out[1] = __uint_as_float(w.y);
-  out[2] = __uint_as_float(w.z); out[3] = __uint_as_float(w.w);
-}
-__device__ __forceinline__ void unpack(const uint4& w, float* out,
-                                       const __nv_bfloat16*) {
-  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i) {
-    out[2 * i] = __uint_as_float(u[i] << 16);
-    out[2 * i + 1] = __uint_as_float(u[i] & 0xffff0000u);
-  }
-}
-__device__ __forceinline__ void unpack(const uint4& w, float* out,
-                                       const int8_t*) {
-  const uint32_t u[4] = {w.x, w.y, w.z, w.w};
-#pragma unroll
-  for (int i = 0; i < 4; ++i)
-#pragma unroll
-    for (int b = 0; b < 4; ++b)
-      out[4 * i + b] = static_cast<float>(static_cast<int8_t>(u[i] >> (8 * b)));
+// A block's query in shared memory (`qs`, D floats padded to 4) and, when
+// `hoist`, its E pick ids after it; returns where the picks are read.
+__device__ __forceinline__ const int* stage_query(const float* __restrict__ q,
+                                                  const int* __restrict__ idx,
+                                                  float* qs, int* pk, int D,
+                                                  int E, int hoist) {
+  const size_t b = blockIdx.x;
+  for (int f = threadIdx.x; f < D; f += kThreads) qs[f] = q[b * D + f];
+  if (hoist)
+    for (int i = threadIdx.x; i < E; i += kThreads) pk[i] = idx[b * E + i];
+  __syncthreads();
+  return hoist ? pk : idx + b * E;
 }
 
-// One warp's dot of the f32 query in shared memory with one stored row, and
-// the row's squared norm, summed in f32 with fmaf; every lane returns the
-// warp's totals. `vec`: 16-byte loads (the row starts 16-byte aligned and
-// D * sizeof(T) is a multiple of 16), else single elements.
-template <typename T>
-__device__ __forceinline__ void row_dot(const T* __restrict__ row,
-                                        const float* qs, int D, int vec,
-                                        int lane, float& dot, float& sq) {
-  constexpr int kVec = 16 / sizeof(T);  // elements per 16-byte load
-  dot = 0.f;
-  sq = 0.f;
-  if (vec) {
-    const uint4* rv = reinterpret_cast<const uint4*>(row);
-    const int nvec = D / kVec;
-#pragma unroll 4
-    for (int v = lane; v < nvec; v += 32) {
-      float x[kVec];
-      unpack(__ldg(rv + v), x, row);
-      const float4* qv = reinterpret_cast<const float4*>(qs + v * kVec);
-#pragma unroll
-      for (int h = 0; h < kVec / 4; ++h) {
-        const float4 qq = qv[h];
-        dot = fmaf(x[4 * h], qq.x, dot);
-        dot = fmaf(x[4 * h + 1], qq.y, dot);
-        dot = fmaf(x[4 * h + 2], qq.z, dot);
-        dot = fmaf(x[4 * h + 3], qq.w, dot);
-#pragma unroll
-        for (int t = 0; t < 4; ++t) sq = fmaf(x[4 * h + t], x[4 * h + t], sq);
-      }
-    }
-  } else {
-    for (int f = lane; f < D; f += 32) {
-      const float x = to_f32(row[f]);
-      dot = fmaf(x, qs[f], dot);
-      sq = fmaf(x, x, sq);
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    dot += __shfl_xor_sync(0xffffffffu, dot, off);
-    sq += __shfl_xor_sync(0xffffffffu, sq, off);
-  }
+// j / R0 for a block's rows without a division: the high word of j times
+// the launcher's m = floor((2^64 - 1) / R0) + 1, exact for every j < 2^31.
+__device__ __forceinline__ int pick_of(int j, int R0, unsigned long long m) {
+  return R0 == 1 ? j : (int)__umul64hi((unsigned long long)j, m);
 }
 
 template <typename T>
@@ -157,47 +109,32 @@ beam_dots_kernel(const float* __restrict__ q,     // [B, D]
                  const T* __restrict__ packed,    // [cap, R0, D]
                  float* __restrict__ dots,        // [B, E*R0]
                  float* __restrict__ cn2,         // [B, E*R0]
-                 int E, int R0, int D, int cap, int vec) {
-  extern __shared__ __align__(16) float qs[];     // [D]
-  const int b = blockIdx.x;
-  for (int f = threadIdx.x; f < D; f += kThreads) qs[f] = q[(size_t)b * D + f];
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+                 int E, int R0, int D, int cap, int vec, int lg, int hoist,
+                 unsigned long long m) {
+  extern __shared__ __align__(16) float smem[];   // query [D], picks [E]
+  const int dp = (D + 3) & ~3;
+  const int* picks = stage_query(q, idx, smem, reinterpret_cast<int*>(smem + dp),
+                                 D, E, hoist);
   const int rows = E * R0;
-  for (int j = warp; j < rows; j += kWarps) {
-    const int pick = idx[(size_t)b * E + j / R0];  // uniform across the warp
-    float dot = 0.f, sq = 0.f;
-    if (pick >= cap) {
-      dot = sq = CUDART_NAN_F;
-    } else if (pick >= 0) {
-      row_dot(packed + ((size_t)pick * R0 + j % R0) * D, qs, D, vec, lane,
-              dot, sq);
-    }
-    if (lane == 0) {
-      dots[(size_t)b * rows + j] = dot;
-      cn2[(size_t)b * rows + j] = sq;
-    }
-  }
+  const size_t out = (size_t)blockIdx.x * rows;
+  const int units = vec ? D / (16 / (int)sizeof(T)) : D;
+  block_rows::score_rows<T, kGroups, kUnits>(
+      smem, rows, units, lg, vec, threadIdx.x >> 5, kWarps, threadIdx.x & 31,
+      [&](int j) -> const T* {
+        const int i = pick_of(j, R0, m), p = picks[i];
+        return p < 0 || p >= cap ? nullptr
+                                 : packed + ((size_t)p * R0 + (j - i * R0)) * D;
+      },
+      [&](int j, float dot, float sq, bool loaded) {
+        if (!loaded && picks[pick_of(j, R0, m)] >= cap) dot = sq = CUDART_NAN_F;
+        dots[out + j] = dot;
+        cn2[out + j] = sq;
+      });
 }
 
-// The metric over one row's (dot, cn2), as ops/beam.py packed_distances
-// writes it, one rounding per step (no FMA contraction): l2
-// max((qn2 + cn2) - 2 dot, 0); cosine 1 - dot / max(|q||c|, 1e-30), similarity
-// 0 below the guard; inner product -dot. mode: 0 l2, 1 cosine, 2 ip.
-__device__ __forceinline__ float metric_distance(float dot, float cn2,
-                                                 float qn2, int mode) {
-  if (mode == 2) return -dot;
-  if (mode == 0)
-    return fmaxf(__fsub_rn(__fadd_rn(qn2, cn2), __fmul_rn(2.f, dot)), 0.f);
-  const float denom = __fmul_rn(sqrtf(qn2), sqrtf(cn2));
-  const float sim = denom < 1e-30f ? 0.f : __fdiv_rn(dot, fmaxf(denom, 1e-30f));
-  return __fsub_rn(1.f, sim);
-}
-
-// Top-m mode: the same per-row gather and dot, then the metric, the penalty
-// and, per pick, m rounds of min / lowest-index argmin / mask to kBig on its
-// R0 distances, held in shared memory beside the query.
+// Top-m mode: the same gather and dots, then the metric, the penalty and,
+// per pick, m rounds of min / lowest-index argmin / mask to kBig on its R0
+// distances, held in shared memory beside the query.
 template <typename T>
 __global__ void __launch_bounds__(kThreads)
 beam_topm_kernel(const float* __restrict__ q,     // [B, D]
@@ -207,32 +144,34 @@ beam_topm_kernel(const float* __restrict__ q,     // [B, D]
                  const float* __restrict__ pen,   // [B, E*R0]
                  float* __restrict__ od,          // [B, E, M]
                  int* __restrict__ ol,            // [B, E, M]
-                 int E, int R0, int D, int cap, int M, int mode, int vec) {
+                 int E, int R0, int D, int cap, int M, int mode, int vec,
+                 int lg, int hoist, unsigned long long m) {
   extern __shared__ __align__(16) float smem[];
   const int dp = (D + 3) & ~3;  // keeps dist 16-byte aligned; unused tail
-  float* qs = smem;             // [D]
-  float* dist = smem + dp;      // [E*R0]
-  const int b = blockIdx.x;
-  for (int f = threadIdx.x; f < D; f += kThreads) qs[f] = q[(size_t)b * D + f];
-  __syncthreads();
-
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const int rows = E * R0;
+  float* dist = smem + dp;      // [E*R0], then the picks [E]
+  const int* picks = stage_query(q, idx, smem, reinterpret_cast<int*>(dist + rows),
+                                 D, E, hoist);
+  const int b = blockIdx.x;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
   const float q2 = qn2[b];
-  for (int j = warp; j < rows; j += kWarps) {
-    const int pick = idx[(size_t)b * E + j / R0];  // uniform across the warp
-    if (pick < 0 || pick >= cap) continue;         // no load: see below
-    float dot, sq;
-    row_dot(packed + ((size_t)pick * R0 + j % R0) * D, qs, D, vec, lane, dot,
-            sq);
-    if (lane == 0)
-      dist[j] = __fadd_rn(metric_distance(dot, sq, q2, mode),
-                          pen[(size_t)b * rows + j]);
-  }
+  const int units = vec ? D / (16 / (int)sizeof(T)) : D;
+  block_rows::score_rows<T, kGroups, kUnits>(
+      smem, rows, units, lg, vec, warp, kWarps, lane,
+      [&](int j) -> const T* {
+        const int i = pick_of(j, R0, m), p = picks[i];
+        return p < 0 || p >= cap ? nullptr
+                                 : packed + ((size_t)p * R0 + (j - i * R0)) * D;
+      },
+      [&](int j, float dot, float sq, bool loaded) {
+        if (loaded)  // a dead or out-of-range pick has no distance: see below
+          dist[j] = __fadd_rn(block_rows::metric_distance(dot, sq, q2, mode),
+                              pen[(size_t)b * rows + j]);
+      });
   __syncthreads();
 
   for (int e = warp; e < E; e += kWarps) {
-    const int pick = idx[(size_t)b * E + e];
+    const int pick = picks[e];
     float* out_d = od + ((size_t)b * E + e) * M;
     int* out_l = ol + ((size_t)b * E + e) * M;
     if (pick < 0 || pick >= cap) {  // dead: (kBig, 0); out of range: (NaN, 0)
@@ -291,16 +230,37 @@ int rows_vec(const void* packed, int D) {
          ((size_t)D * sizeof(T)) % 16 == 0;
 }
 
+// pick_of's multiplier for R0 > 1.
+inline unsigned long long reciprocal(int R0) {
+  return R0 > 1 ? ~0ull / (unsigned long long)R0 + 1 : 0;
+}
+
+// The row geometry of block_rows.cuh: (vec, log2 of the lanes a row).
+template <typename T>
+void geometry(const void* packed, int D, int& vec, int& lg) {
+  vec = rows_vec<T>(packed, D);
+  lg = block_rows::lanes_log2(vec ? D / (16 / (int)sizeof(T)) : D, kUnits);
+}
+
+// Shared memory of a block: `words` of it before the picks, and the E pick
+// ids after them where they fit (`hoist`), else read from idx.
+inline size_t with_picks(size_t words, int E, int& hoist) {
+  hoist = (words + E) * sizeof(float) <= kMaxSmem;
+  return (words + (hoist ? E : 0)) * sizeof(float);
+}
+
 template <typename T>
 cudaError_t launch(const float* q, const int* idx, const void* packed,
                    float* dots, float* cn2, int B, int E, int R0, int D,
                    int cap, cudaStream_t stream) {
-  const size_t smem = (size_t)D * sizeof(float);
+  int vec, lg, hoist;
+  geometry<T>(packed, D, vec, lg);
+  const size_t smem = with_picks((size_t)((D + 3) & ~3), E, hoist);
   const cudaError_t err = allow_smem(beam_dots_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   beam_dots_kernel<T><<<B, kThreads, smem, stream>>>(
-      q, idx, static_cast<const T*>(packed), dots, cn2, E, R0, D, cap,
-      rows_vec<T>(packed, D));
+      q, idx, static_cast<const T*>(packed), dots, cn2, E, R0, D, cap, vec, lg,
+      hoist, reciprocal(R0));
   return cudaGetLastError();
 }
 
@@ -309,12 +269,15 @@ cudaError_t launch_topm(const float* q, const float* qn2, const int* idx,
                         const void* packed, const float* pen, float* od,
                         int* ol, int B, int E, int R0, int D, int cap, int M,
                         int mode, cudaStream_t stream) {
-  const size_t smem = ((size_t)((D + 3) & ~3) + (size_t)E * R0) * sizeof(float);
+  int vec, lg, hoist;
+  geometry<T>(packed, D, vec, lg);
+  const size_t smem =
+      with_picks((size_t)((D + 3) & ~3) + (size_t)E * R0, E, hoist);
   const cudaError_t err = allow_smem(beam_topm_kernel<T>, smem);
   if (err != cudaSuccess) return err;
   beam_topm_kernel<T><<<B, kThreads, smem, stream>>>(
       q, qn2, idx, static_cast<const T*>(packed), pen, od, ol, E, R0, D, cap,
-      M, mode, rows_vec<T>(packed, D));
+      M, mode, vec, lg, hoist, reciprocal(R0));
   return cudaGetLastError();
 }
 

@@ -24,25 +24,50 @@
 // vector block (pack_wide); here a thread reads neighbors0 [cap, R0] itself,
 // so the blocks are the fused path's packed [cap, R0, D] bf16 table.
 //
+// The beam is kept sorted by (distance, position), finite entries first: the
+// initial beam is ranked once, and every merge writes its result in order.
+// So the picks are the first E unexpanded entries with a slot (one warp,
+// ballots), and the merge is one of two sorted runs, beam first on equal
+// distances (a binary search per entry). The first step's patience test
+// reads the caller's unsorted beam, as the reference does.
+//
 // Early exit: a query that is not live at a step never changes again (no
-// candidates, stall frozen, and from the second step on its beam is already
-// the sorted result of a merge), so its block stops there; the result equals
-// running all max_iters steps, as the TPU kernel does.
+// candidates, stall frozen, and its beam is already the sorted result of a
+// merge), so its block stops there; the result equals running all max_iters
+// steps, as the TPU kernel does.
 //
 // What bounds it on an H100: on paper device-memory bytes, the neighbour ids
 // (E*R0*4 B per step) and the fresh candidates' rows (D*2 B each; a dropped
-// candidate's row is never read). In practice each step is a chain of
-// block-wide phases (pick, ids, dedup, score, merge, counts) separated by
-// barriers, with O(ef^2 + E*R0*(ef + E*R0)) shared-memory compares for the
-// rank-counting pick, dedup and merge, so one block's time is latency; many
-// blocks per SM (one per query, 256 threads, a few KB of shared memory each)
-// hide part of it. The scoring is beam_dots' one warp per row with 16-byte
-// loads when rows are aligned.
+// candidate's row is never read). In practice a step is a chain of
+// block-wide phases separated by barriers and two dependent round trips to
+// device memory (the picks' ids, then the kept rows), so a block's time is
+// latency, hidden by the other blocks of its SM. What the design does about
+// it, phase by phase:
+//   - dedup in O(1) a candidate: a shared-memory hash of the beam's and the
+//     candidates' ids (linear probing, at most half full where shared memory
+//     allows), whose slot keeps the lowest candidate holding the id (atomicMin;
+//     -1 for a beam slot): a candidate is kept where it is that lowest one;
+//   - the kept candidates compacted in order (a per-thread bit mask, warp
+//     scan, one barrier), so scoring is dense and the sort ranks only them;
+//   - the kept rows prefetched into L2 as soon as they are known, then
+//     scored through block_rows.cuh, many rows a warp in flight;
+//   - only contenders sorted: once the beam is full, a candidate at or
+//     above its last distance cannot place (the beam goes first on equal
+//     distances), so only those below it are ranked, by counting among
+//     themselves up to ef, then merged with the beam by binary searches:
+//     O((ef + contenders) log) instead of counting over ef + E*R0.
+// Blocks of 128 threads: a step's phases are short, and more, smaller
+// blocks an SM overlap one block's scoring with another's bookkeeping
+// better than fewer blocks of 256 (tools/probes/beam_probe.py).
 //
-// Limits (shared memory, 4 bytes a word): the query (D rounded up to 4),
-// two beams of ef (distance, slot, flag), E*R0 candidates (distance, slot,
-// keep) and E picks must fit 232,448 bytes; ops/beam_loop.py also caps
-// ef <= 1024 and E*R0 <= 4096.
+// Limits: shared memory (4-byte words, `smem_words`): the query (D rounded
+// up to 4) where it fits, else it is read from device memory; two beams of
+// ef (distance, slot, flag); E*R0 candidates (id, kept (pick, row),
+// contender distance and position, sorted distance and id); E pick slots;
+// a hash of `h` (key, value) slots, h the power of two at or above
+// 2 (ef + E*R0), halved while that does not fit and h / 2 still holds
+// ef + E*R0; scratch. ops/beam_loop.py caps ef <= 1024 and E*R0 <= 4096,
+// where the block takes at most 192,640 bytes without the query.
 //
 // Interface: plain C functions, loaded with ctypes. The launcher runs on the
 // caller's stream, allocates nothing, does not synchronise, and returns
@@ -53,81 +78,65 @@
 #include <math_constants.h>
 #include <stdint.h>
 
+#include "block_rows.cuh"
+
 namespace {
 
-constexpr int kThreads = 256;
+constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
+constexpr int kGroups = 2;           // row groups a warp scores at once
+constexpr int kUnits = 4;            // 16-byte loads a lane and row at once
 constexpr size_t kMaxSmem = 232448;  // an H100 block's shared memory
+constexpr int kScratchWords = 32;    // step counters, then per-warp totals
+constexpr int kEmpty = -1;           // the key of a free hash slot
+constexpr int kNone = 0x7fffffff;    // the value of a free hash slot
 
-// One warp's dot of the f32 query in shared memory with one bf16 row, and
-// the row's squared norm, summed in f32 with fmaf; every lane returns the
-// totals. `vec`: 16-byte loads of 8 bf16, else single elements.
-__device__ __forceinline__ void row_dot(const __nv_bfloat16* __restrict__ row,
-                                        const float* qs, int D, int vec,
-                                        int lane, float& dot, float& sq) {
-  dot = 0.f;
-  sq = 0.f;
-  if (vec) {
-    const uint4* rv = reinterpret_cast<const uint4*>(row);
-    const int nvec = D / 8;
-#pragma unroll 4
-    for (int v = lane; v < nvec; v += 32) {
-      const uint4 w = __ldg(rv + v);
-      const uint32_t u[4] = {w.x, w.y, w.z, w.w};
-      const float4* qv = reinterpret_cast<const float4*>(qs + v * 8);
-#pragma unroll
-      for (int h = 0; h < 2; ++h) {
-        const float4 qq = qv[h];
-        // the low half of each word is the lower element (little-endian)
-        const float x0 = __uint_as_float(u[2 * h] << 16);
-        const float x1 = __uint_as_float(u[2 * h] & 0xffff0000u);
-        const float x2 = __uint_as_float(u[2 * h + 1] << 16);
-        const float x3 = __uint_as_float(u[2 * h + 1] & 0xffff0000u);
-        dot = fmaf(x0, qq.x, dot);
-        dot = fmaf(x1, qq.y, dot);
-        dot = fmaf(x2, qq.z, dot);
-        dot = fmaf(x3, qq.w, dot);
-        sq = fmaf(x0, x0, sq);
-        sq = fmaf(x1, x1, sq);
-        sq = fmaf(x2, x2, sq);
-        sq = fmaf(x3, x3, sq);
-      }
+// The words of shared memory a block takes (ops/beam_loop.py _smem_bytes
+// computes the same): the query dq, the beams, the candidates, the picks,
+// the hash, the scratch.
+__host__ __device__ constexpr long long smem_words(long long dq, long long ef,
+                                                   long long e, long long c,
+                                                   long long h) {
+  return dq + 6 * ef + 6 * c + e + 2 * h + kScratchWords;
+}
+
+struct Plan {
+  int hlog;          // log2 of the hash slots
+  int qsm;           // the query in shared memory
+  long long bytes;   // shared memory of a block
+};
+
+// The hash and the query's place for (D, ef, E, R0): see the header.
+Plan plan(int D, int ef, int E, int R0) {
+  const long long c = (long long)E * R0;
+  int hlog = 2;
+  while ((1LL << hlog) < 2 * (ef + c)) ++hlog;
+  while (smem_words(0, ef, E, c, 1LL << hlog) * 4 > (long long)kMaxSmem &&
+         (1LL << (hlog - 1)) >= ef + c)
+    --hlog;
+  const long long with_q = smem_words(((long long)D + 3) & ~3LL, ef, E, c, 1LL << hlog) * 4;
+  if (with_q <= (long long)kMaxSmem) return {hlog, 1, with_q};
+  return {hlog, 0, smem_words(0, ef, E, c, 1LL << hlog) * 4};
+}
+
+// Enter `id` in the hash with value `val`: its slot keeps the least value
+// entered under the id. Returns the slot. The table has more slots than
+// ids, so the probe ends.
+__device__ __forceinline__ int hash_insert(int* hk, int* hv, int hlog, int id,
+                                           int val) {
+  const unsigned mask = (1u << hlog) - 1;
+  unsigned h = ((unsigned)id * 2654435761u) >> (32 - hlog);
+  for (;;) {
+    const int k = atomicCAS(&hk[h], kEmpty, id);
+    if (k == kEmpty || k == id) {
+      atomicMin(&hv[h], val);
+      return (int)h;
     }
-  } else {
-    for (int f = lane; f < D; f += 32) {
-      const float x = __bfloat162float(row[f]);
-      dot = fmaf(x, qs[f], dot);
-      sq = fmaf(x, x, sq);
-    }
-  }
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) {
-    dot += __shfl_xor_sync(0xffffffffu, dot, off);
-    sq += __shfl_xor_sync(0xffffffffu, sq, off);
+    h = (h + 1) & mask;
   }
 }
 
-// ops/beam.py packed_distances, one rounding per step. mode: 0 l2,
-// 1 cosine, 2 inner product.
-__device__ __forceinline__ float metric_distance(float dot, float cn2,
-                                                 float qn2, int mode) {
-  if (mode == 2) return -dot;
-  if (mode == 0)
-    return fmaxf(__fsub_rn(__fadd_rn(qn2, cn2), __fmul_rn(2.f, dot)), 0.f);
-  const float denom = __fmul_rn(sqrtf(qn2), sqrtf(cn2));
-  const float sim = denom < 1e-30f ? 0.f : __fdiv_rn(dot, fmaxf(denom, 1e-30f));
-  return __fsub_rn(1.f, sim);
-}
-
-// How many of a[0..n) are >= 0, across the block (every thread gets it).
-__device__ __forceinline__ int count_valid(const int* a, int n) {
-  int c = 0;
-  for (int base = 0; base < n; base += kThreads)
-    c += __syncthreads_count(base + (int)threadIdx.x < n &&
-                             a[base + threadIdx.x] >= 0);
-  return c;
-}
-
+template <bool kQueryShared>
 __global__ void __launch_bounds__(kThreads)
 beam_loop_kernel(const float* __restrict__ q,        // [B, D]
                  const float* __restrict__ qn2,      // [B]
@@ -138,125 +147,282 @@ beam_loop_kernel(const float* __restrict__ q,        // [B, D]
                  float* __restrict__ out_d,          // [B, ef]
                  int* __restrict__ out_i,            // [B, ef]
                  int D, int R0, int ef, int E, int patience, int max_iters,
-                 int mode, int vec) {
+                 int mode, int vec, int lg, int hlog) {
   extern __shared__ __align__(16) float smem[];
-  const int C = E * R0;
+  const int C = E * R0, H = 1 << hlog;
   float* qs = smem;                                    // [D], padded to 4
-  float* bd = qs + ((D + 3) & ~3);                     // beam: distance
-  int* bi = reinterpret_cast<int*>(bd + ef);           //       slot
-  int* bx = bi + ef;                                   //       expanded
-  float* nd = reinterpret_cast<float*>(bx + ef);       // next beam
+  float* ad = qs + (kQueryShared ? (D + 3) & ~3 : 0);  // beam: distance
+  int* ai = reinterpret_cast<int*>(ad + ef);           //       slot
+  int* ax = ai + ef;                                   //       expanded
+  float* nd = reinterpret_cast<float*>(ax + ef);       // next beam
   int* ni = reinterpret_cast<int*>(nd + ef);
   int* nx = ni + ef;
-  float* cd = reinterpret_cast<float*>(nx + ef);       // candidates
-  int* ci = reinterpret_cast<int*>(cd + C);
-  int* keep = ci + C;
-  int* pk = keep + C;                                  // [E] pick positions
+  int* ci = nx + ef;                                   // [C] candidate ids
+  int* kl = ci + C;                                    // [C] kept, in order
+  float* kd = reinterpret_cast<float*>(kl + C);        // [C] hash slots, then
+                                                       //     contenders: distance
+  int* kx = reinterpret_cast<int*>(kd + C);            //     and kept position
+  float* sd = reinterpret_cast<float*>(kx + C);        // [C] contenders sorted
+  int* si = reinterpret_cast<int*>(sd + C);
+  int* ps = si + C;                                    // [E] pick slots
+  int* hk = ps + E;                                    // [H] hash keys
+  int* hv = hk + H;                                    // [H] least values
+  int* sc = hv + H;  // [0] picks, [1] contenders, [2] slots in the new beam,
+                     // [8, 8 + kWarps) warp totals
 
   const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
   const size_t b = blockIdx.x;
-  for (int f = tid; f < D; f += kThreads) qs[f] = q[b * D + f];
-  for (int p = tid; p < ef; p += kThreads) {
-    bd[p] = init_d[b * ef + p];
-    bi[p] = init_i[b * ef + p];
-    bx[p] = 0;
+  const float* qv = kQueryShared ? qs : q + b * D;
+  if (kQueryShared)
+    for (int f = tid; f < D; f += kThreads) qs[f] = q[b * D + f];
+  if (max_iters == 0) {  // the loop never runs: the beam as given
+    for (int p = tid; p < ef; p += kThreads) {
+      out_d[b * ef + p] = init_d[b * ef + p];
+      out_i[b * ef + p] = init_i[b * ef + p];
+    }
+    return;
   }
   const float q2 = qn2[b];
+  const int units = vec ? D / 8 : D;
+  for (int p = tid; p < ef; p += kThreads) {
+    nd[p] = init_d[b * ef + p];
+    ni[p] = init_i[b * ef + p];
+  }
+  for (int s = tid; s < H; s += kThreads) {
+    hk[s] = kEmpty;
+    hv[s] = kNone;
+  }
+  int nfin = 0, had = 0;  // finite entries and slots >= 0: every thread
+  for (int base = 0; base < ef; base += kThreads) {
+    const int p = base + tid;
+    nfin += __syncthreads_count(p < ef && init_d[b * ef + p] < CUDART_INF_F);
+    had += __syncthreads_count(p < ef && init_i[b * ef + p] >= 0);
+  }
+  // the initial beam in (distance, position) order, finite entries first;
+  // the others follow in position order with their slots, which the first
+  // step's dedup still compares against
+  for (int p = tid; p < ef; p += kThreads) {
+    const float d = nd[p];
+    const bool fin = d < CUDART_INF_F;
+    int rank = fin ? 0 : nfin;
+    for (int o = 0; o < ef; ++o) {
+      const float od = nd[o];
+      const bool ofin = od < CUDART_INF_F;
+      rank += fin ? ofin && (od < d || (od == d && o < p)) : !ofin && o < p;
+    }
+    ad[rank] = d;
+    ai[rank] = ni[p];
+    ax[rank] = 0;
+  }
+  float old_last = init_d[b * ef + ef - 1];  // the first step's, unsorted
   int stall = 0;  // the same in every thread
   __syncthreads();
 
   for (int it = 0; it < max_iters; ++it) {
-    // pick: rank each unexpanded live entry among the others by (distance,
-    // position); ranks below E name the picks, in order
-    for (int i = tid; i < E; i += kThreads) pk[i] = -1;
-    __syncthreads();
-    for (int p = tid; p < ef; p += kThreads) {
-      const float d = bd[p];
-      if (bx[p] || bi[p] < 0 || !(d < CUDART_INF_F)) continue;
-      int rank = 0;
-      for (int o = 0; o < ef && rank < E; ++o) {
-        const float od = bd[o];
-        rank += !bx[o] && bi[o] >= 0 && (od < d || (od == d && o < p));
+    // pick: the first E unexpanded entries with a slot, in beam order (warp
+    // 0, by ballots), marked expanded; the other warps enter the beam's
+    // slots in the hash
+    if (warp == 0) {
+      int got = 0;
+      for (int base = 0; base < nfin && got < E; base += 32) {
+        const int p = base + lane;
+        const bool f = p < nfin && !ax[p] && ai[p] >= 0;
+        const unsigned m = __ballot_sync(0xffffffffu, f);
+        const int r = got + __popc(m & ((1u << lane) - 1));
+        if (f && r < E) {
+          ps[r] = ai[p];
+          ax[p] = 1;
+        }
+        got += __popc(m);
       }
-      if (rank < E) pk[rank] = p;
+      if (lane == 0) sc[0] = min(got, E);
+    } else {
+      for (int p = tid - 32; p < ef; p += kThreads - 32)
+        if (ai[p] >= 0) hash_insert(hk, hv, hlog, ai[p], -1);
     }
     __syncthreads();
-    const int npick = count_valid(pk, E);
-    const bool live = npick > 0 && stall < patience;
-    if (!live && it > 0) break;  // uniform: see the header
+    const int npick = sc[0];
+    if (npick == 0 || stall >= patience) break;  // not live: see the header
 
-    // the picks' neighbour ids, pick-major; picks marked expanded
-    const int nlive = live ? npick : 0;
-    for (int i = tid; i < nlive; i += kThreads) bx[pk[i]] = 1;
+    // candidates: the picks' neighbour ids, pick-major, entered in the hash
+    // (value: the candidate's position); kd holds each one's hash slot
+    if (tid == 0) {
+      sc[1] = 0;
+      sc[2] = 0;
+    }
     for (int j = tid; j < C; j += kThreads) {
       const int i = j / R0;
-      ci[j] = i < nlive ? nbrs0[(size_t)bi[pk[i]] * R0 + (j - i * R0)] : -1;
-      cd[j] = CUDART_INF_F;
+      const int id = i < npick ? nbrs0[(size_t)ps[i] * R0 + (j - i * R0)] : -1;
+      ci[j] = id;
+      kd[j] = __int_as_float(id >= 0 ? hash_insert(hk, hv, hlog, id, j) : -1);
     }
-    for (int p = tid; p < ef; p += kThreads) {
+    __syncthreads();
+
+    // dedup: a candidate is kept where its slot's least value is its own
+    // position (not in the beam, no earlier candidate with its id); the
+    // kept ones, compacted in order into kl as (pick << 16 | row), thread t
+    // holding [t * per, (t + 1) * per), and their rows prefetched into L2
+    const int per = (C + kThreads - 1) / kThreads, j0 = tid * per;
+    unsigned long long keep = 0;
+    for (int t = 0; t < per && j0 + t < C; ++t) {
+      const int h = __float_as_int(kd[j0 + t]);
+      if (h >= 0 && hv[h] == j0 + t) keep |= 1ull << t;
+    }
+    const int cnt = __popcll(keep);
+    int incl = cnt;
+#pragma unroll
+    for (int off = 1; off < 32; off <<= 1) {
+      const int v = __shfl_up_sync(0xffffffffu, incl, off);
+      if (lane >= off) incl += v;
+    }
+    if (lane == 31) sc[8 + warp] = incl;
+    __syncthreads();
+    int at = incl - cnt, nk = 0;
+    for (int w = 0; w < kWarps; ++w) {
+      const int tw = sc[8 + w];
+      at += w < warp ? tw : 0;
+      nk += tw;
+    }
+    for (int t = 0; t < per; ++t) {
+      if (!(keep >> t & 1)) continue;
+      const int j = j0 + t, i = j / R0;
+      kl[at++] = i << 16 | (j - i * R0);
+      const char* row = reinterpret_cast<const char*>(
+          packed + ((size_t)ps[i] * R0 + (j - i * R0)) * D);
+      for (int off = 0; off < D * 2; off += 128)
+        asm volatile("prefetch.global.L2 [%0];" ::"l"(row + off));
+    }
+    __syncthreads();
+
+    // score: the kept rows (block_rows.cuh); the hash is cleared meanwhile.
+    // A kept candidate contends for the next beam where its distance is
+    // below `thr`, the last entry of a full beam (beam first on equal
+    // distances: no other can place); contenders go to (kd, kx) as
+    // (distance, kept position), in any order
+    for (int s = tid; s < H; s += kThreads) {
+      hk[s] = kEmpty;
+      hv[s] = kNone;
+    }
+    const float thr = nfin == ef ? ad[ef - 1] : CUDART_INF_F;
+    block_rows::score_rows<__nv_bfloat16, kGroups, kUnits>(
+        qv, nk, units, lg, vec, warp, kWarps, lane,
+        [&](int s) -> const __nv_bfloat16* {
+          const int v = kl[s];
+          return packed + ((size_t)ps[v >> 16] * R0 + (v & 0xffff)) * D;
+        },
+        [&](int s, float dot, float sq, bool) {
+          const float d = block_rows::metric_distance(dot, sq, q2, mode);
+          if (d < thr) {
+            const int at = atomicAdd(&sc[1], 1);
+            kd[at] = d;
+            kx[at] = s;
+          }
+        });
+    __syncthreads();
+
+    // rank: the contenders in (distance, kept position) order, each ranked
+    // among the others, four at a time; the count stops once it reaches
+    // ef, since a contender with ef better ones cannot place
+    const int nc = sc[1];
+    for (int a = tid; a < nc; a += kThreads) {
+      const float d = kd[a];
+      const int x = kx[a];
+      int rank = 0;
+      for (int o = 0; o < nc && rank < ef; o += 4) {
+#pragma unroll
+        for (int u = 0; u < 4; ++u) {
+          if (o + u >= nc) break;
+          const float od = kd[o + u];
+          rank += od < d || (od == d && kx[o + u] < x);
+        }
+      }
+      if (rank < ef) {
+        const int v = kl[x];
+        sd[rank] = d;
+        si[rank] = ci[(v >> 16) * R0 + (v & 0xffff)];
+      }
+    }
+    __syncthreads();
+
+    // merge: the sorted beam and the sorted run into the next beam, the
+    // beam first on equal distances; each entry's place is its own index
+    // plus the other run's entries before it
+    const int nkf = min(nc, ef), nn = min(ef, nfin + nc);  // sd holds nkf
+    int mine = 0;
+    for (int p = tid; p < nfin; p += kThreads) {
+      const float d = ad[p];
+      int lo = 0, hi = nkf;  // run entries below d
+      while (lo < hi) {
+        const int m = (lo + hi) >> 1;
+        if (sd[m] < d) lo = m + 1; else hi = m;
+      }
+      if (p + lo < ef) {
+        nd[p + lo] = d;
+        ni[p + lo] = ai[p];
+        nx[p + lo] = ax[p];
+        mine += ai[p] >= 0;
+      }
+    }
+    for (int s = tid; s < nkf; s += kThreads) {
+      const float d = sd[s];
+      int lo = 0, hi = nfin;  // beam entries at or below d
+      while (lo < hi) {
+        const int m = (lo + hi) >> 1;
+        if (ad[m] <= d) lo = m + 1; else hi = m;
+      }
+      if (s + lo < ef) {
+        nd[s + lo] = d;
+        ni[s + lo] = si[s];
+        nx[s + lo] = 0;
+        ++mine;
+      }
+    }
+    for (int p = nn + tid; p < ef; p += kThreads) {
       nd[p] = CUDART_INF_F;
       ni[p] = -1;
       nx[p] = 0;
     }
+    mine = __reduce_add_sync(0xffffffffu, mine);
+    if (lane == 0 && mine) atomicAdd(&sc[2], mine);
     __syncthreads();
 
-    // dedup: drop ids in the beam and repeats of an earlier candidate
-    for (int j = tid; j < C; j += kThreads) {
-      const int id = ci[j];
-      bool k = id >= 0;
-      for (int p = 0; k && p < ef; ++p) k = bi[p] != id;
-      for (int o = 0; k && o < j; ++o) k = ci[o] != id;
-      keep[j] = k;
-    }
-    __syncthreads();
-
-    // score the kept candidates, one warp per row of the pick's block
-    for (int j = warp; j < C; j += kWarps) {
-      if (!keep[j]) continue;  // uniform across the warp
-      const int i = j / R0;
-      float dot, sq;
-      row_dot(packed + ((size_t)bi[pk[i]] * R0 + (j - i * R0)) * D, qs, D, vec,
-              lane, dot, sq);
-      if (lane == 0) cd[j] = metric_distance(dot, sq, q2, mode);
-    }
-    __syncthreads();
-
-    // merge: rank each finite entry of [beam | candidates] by (distance,
-    // position); ranks below ef form the next beam
-    for (int w = tid; w < ef + C; w += kThreads) {
-      const bool old = w < ef;
-      const float d = old ? bd[w] : cd[w - ef];
-      if (!(d < CUDART_INF_F)) continue;
-      int rank = 0;
-      for (int o = 0; o < ef && rank < ef; ++o) {
-        const float od = bd[o];
-        rank += od < d || (od == d && o < w);
-      }
-      for (int o = 0; o < C && rank < ef; ++o) {
-        const float od = cd[o];
-        rank += od < d || (od == d && ef + o < w);
-      }
-      if (rank < ef) {
-        nd[rank] = d;
-        ni[rank] = old ? bi[w] : ci[w - ef];
-        nx[rank] = old ? bx[w] : 0;
-      }
-    }
-    __syncthreads();
-
-    // fill-aware improvement; patience counts expansions
-    const int had = count_valid(bi, ef);
-    const int has = count_valid(ni, ef);
-    if (live) stall = (nd[ef - 1] < bd[ef - 1] || has > had) ? 0 : stall + npick;
-    float* tf = bd; bd = nd; nd = tf;
-    int* ti = bi; bi = ni; ni = ti;
-    ti = bx; bx = nx; nx = ti;
-    __syncthreads();  // every read of the old beam is done before it is reused
+    // patience: fill-aware improvement, counted in expansions
+    const int has = sc[2];
+    stall = (nd[ef - 1] < old_last || has > had) ? 0 : stall + npick;
+    had = has;
+    nfin = nn;
+    old_last = nd[ef - 1];
+    float* tf = ad; ad = nd; nd = tf;
+    int* ti = ai; ai = ni; ni = ti;
+    ti = ax; ax = nx; nx = ti;
   }
   for (int p = tid; p < ef; p += kThreads) {
-    out_d[b * ef + p] = bd[p];
-    out_i[b * ef + p] = bi[p];
+    out_d[b * ef + p] = p < nfin ? ad[p] : CUDART_INF_F;
+    out_i[b * ef + p] = p < nfin ? ai[p] : -1;
   }
+}
+
+template <bool kQueryShared>
+cudaError_t launch(const void* q, const void* qn2, const void* init_d,
+                   const void* init_i, const void* packed, const void* nbrs0,
+                   void* out_d, void* out_i, int B, int D, int R0, int ef,
+                   int E, int patience, int max_iters, int mode, const Plan& pl,
+                   cudaStream_t stream) {
+  if (pl.bytes > 48 * 1024) {
+    const cudaError_t err = cudaFuncSetAttribute(
+        beam_loop_kernel<kQueryShared>,
+        cudaFuncAttributeMaxDynamicSharedMemorySize, (int)pl.bytes);
+    if (err != cudaSuccess) return err;
+  }
+  const int vec = reinterpret_cast<uintptr_t>(packed) % 16 == 0 && D % 8 == 0;
+  beam_loop_kernel<kQueryShared><<<B, kThreads, pl.bytes, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(qn2),
+      static_cast<const float*>(init_d), static_cast<const int*>(init_i),
+      static_cast<const __nv_bfloat16*>(packed),
+      static_cast<const int*>(nbrs0), static_cast<float*>(out_d),
+      static_cast<int*>(out_i), D, R0, ef, E, patience, max_iters, mode, vec,
+      block_rows::lanes_log2(vec ? D / 8 : D, kUnits), pl.hlog);
+  return cudaGetLastError();
 }
 
 }  // namespace
@@ -265,6 +431,11 @@ extern "C" {
 
 const char* beam_loop_error_string(int code) {
   return cudaGetErrorString(static_cast<cudaError_t>(code));
+}
+
+// Shared memory of one block at (D, ef, E, R0), as the launcher plans it.
+long long beam_loop_smem_bytes(int D, int ef, int E, int R0) {
+  return plan(D, ef, E, R0).bytes;
 }
 
 // q [B, D] f32, qn2 [B] f32 (the queries' squared norms), init_d [B, ef] f32,
@@ -276,30 +447,22 @@ int beam_loop(const void* q, const void* qn2, const void* init_d,
               void* out_d, void* out_i, int B, int D, int R0, int cap, int ef,
               int E, int patience, int max_iters, int mode, int device,
               void* stream) {
+  // E*R0 within 64 candidates a thread: the dedup's per-thread bit mask
   if (B < 1 || D < 1 || R0 < 1 || cap < 0 || ef < 1 || E < 1 || E > ef ||
       patience < 1 || max_iters < 0 || mode < 0 || mode > 2 ||
-      (long long)E * R0 > 0x7fffffff)
+      (long long)E * R0 > 64LL * kThreads)
     return static_cast<int>(cudaErrorInvalidValue);
-  const size_t smem =
-      ((size_t)((D + 3) & ~3) + 6 * (size_t)ef + 3 * (size_t)E * R0 + E) * 4;
-  if (smem > kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
+  const Plan pl = plan(D, ef, E, R0);
+  if (pl.bytes > (long long)kMaxSmem) return static_cast<int>(cudaErrorInvalidValue);
   // this library links its own CUDA runtime, whose current card is its own
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return static_cast<int>(err);
-  if (smem > 48 * 1024) {
-    err = cudaFuncSetAttribute(beam_loop_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return static_cast<int>(err);
-  }
-  const int vec = reinterpret_cast<uintptr_t>(packed) % 16 == 0 && D % 8 == 0;
-  beam_loop_kernel<<<B, kThreads, smem, static_cast<cudaStream_t>(stream)>>>(
-      static_cast<const float*>(q), static_cast<const float*>(qn2),
-      static_cast<const float*>(init_d), static_cast<const int*>(init_i),
-      static_cast<const __nv_bfloat16*>(packed),
-      static_cast<const int*>(nbrs0), static_cast<float*>(out_d),
-      static_cast<int*>(out_i), D, R0, ef, E, patience, max_iters, mode, vec);
-  return static_cast<int>(cudaGetLastError());
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  err = pl.qsm ? launch<true>(q, qn2, init_d, init_i, packed, nbrs0, out_d, out_i,
+                              B, D, R0, ef, E, patience, max_iters, mode, pl, st)
+               : launch<false>(q, qn2, init_d, init_i, packed, nbrs0, out_d, out_i,
+                               B, D, R0, ef, E, patience, max_iters, mode, pl, st);
+  return static_cast<int>(err);
 }
 
 }  // extern "C"

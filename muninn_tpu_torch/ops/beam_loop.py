@@ -53,13 +53,14 @@ from muninn_tpu_torch.ops.topk import smallest_k
 
 ID_LANES = 128  # pack_wide's lanes after d: three id bytes, then zeros
 PICK_XFERS = ("dma", "scalar")
-# The kernel holds one query's beam twice (old and new: distance, slot,
-# expanded flag), its E*R0 candidates (distance, slot, keep flag), its E
-# picks and the query in shared memory, 4 bytes each: at the limits,
-# 4 * (6 * 1024 + 3 * 4096) = 72 KB beside 4 * d for the query.
+# The kernel holds one query's beam twice (old and new), its E*R0
+# candidates, its E picks, a hash of the step's ids and, where it fits, the
+# query in shared memory (``_smem_bytes``); at the limits the block takes
+# 192,640 bytes without the query, so every d is served.
 MAX_EF = 1024
 MAX_CANDIDATES = 4096
 _SMEM_BYTES = 232448  # an H100 block's shared memory
+_SCRATCH_WORDS = 32   # kScratchWords in csrc/beam_loop.cu
 _INF = float("inf")
 
 
@@ -198,24 +199,66 @@ def beam_loop_plain(
     return beam_d, beam_i, int(expansions), int(fresh)
 
 
+def _smem_words(dq: int, ef: int, e: int, c: int, h: int) -> int:
+    """``smem_words`` of csrc/beam_loop.cu: the query ``dq``, two beams of
+    ``ef`` (distance, slot, flag), ``c`` candidates (id, kept (pick, row),
+    contender distance and position, sorted distance and id), ``e`` pick
+    slots, ``h`` hash slots (key, value), scratch; 4 bytes each."""
+    return dq + 6 * ef + 6 * c + e + 2 * h + _SCRATCH_WORDS
+
+
+def _plan(d: int, ef: int, e: int, r0: int) -> tuple[int, bool, int]:
+    """``plan`` of csrc/beam_loop.cu: ``(hash slots, query in shared
+    memory, bytes)``. The hash has the power of two at or above ``2 (ef +
+    E*R0)`` slots, halved while the block does not fit and half still hold
+    ``ef + E*R0``; the query goes to shared memory where it fits beside the
+    rest, else the kernel reads it from device memory."""
+    c = e * r0
+    h = 4
+    while h < 2 * (ef + c):
+        h *= 2
+    while 4 * _smem_words(0, ef, e, c, h) > _SMEM_BYTES and h // 2 >= ef + c:
+        h //= 2
+    with_q = 4 * _smem_words(-(-d // 4) * 4, ef, e, c, h)
+    if with_q <= _SMEM_BYTES:
+        return h, True, with_q
+    return h, False, 4 * _smem_words(0, ef, e, c, h)
+
+
 def _smem_bytes(d: int, ef: int, e: int, r0: int) -> int:
-    """Shared memory of one kernel block: the query (d rounded up to 4), two
-    beams, the candidates and the picks, 4 bytes each."""
-    return 4 * (-(-d // 4) * 4 + 6 * ef + 3 * e * r0 + e)
+    """Shared memory of one kernel block (``_plan``)."""
+    return _plan(d, ef, e, r0)[2]
 
 
 _LIB: ctypes.CDLL | None = None  # the bound library, loaded at first launch
 
 
+def _bind(lib: ctypes.CDLL) -> ctypes.CDLL:
+    """Declare the launcher's C signature on a loaded library."""
+    ptr, i32 = ctypes.c_void_p, ctypes.c_int
+    lib.beam_loop.argtypes = [ptr] * 8 + [i32] * 10 + [ptr]
+    lib.beam_loop.restype = i32
+    lib.beam_loop_error_string.argtypes = [i32]
+    lib.beam_loop_error_string.restype = ctypes.c_char_p
+    return lib
+
+
 def _library() -> ctypes.CDLL:
     global _LIB
     if _LIB is None:
-        lib = _build.library("beam_loop")
-        ptr, i32 = ctypes.c_void_p, ctypes.c_int
-        lib.beam_loop.argtypes = [ptr] * 8 + [i32] * 10 + [ptr]
-        lib.beam_loop.restype = i32
-        lib.beam_loop_error_string.argtypes = [i32]
-        lib.beam_loop_error_string.restype = ctypes.c_char_p
+        lib = _bind(_build.library("beam_loop"))
+        lib.beam_loop_smem_bytes.argtypes = [ctypes.c_int] * 4
+        lib.beam_loop_smem_bytes.restype = ctypes.c_longlong
+        # the source's count against this module's, at the bench shape, the
+        # limits, and shapes whose query moves out of shared memory
+        for shape in ((384, 24, 8, 32), (37, 5, 3, 12), (1024, MAX_EF, 128, 32),
+                      (40000, MAX_EF, 128, 32), (58000, 24, 8, 32), (1, 1, 1, 1)):
+            if lib.beam_loop_smem_bytes(*shape) != _smem_bytes(*shape):
+                raise RuntimeError(
+                    f"csrc/beam_loop.cu asks {lib.beam_loop_smem_bytes(*shape)}"
+                    f" bytes of shared memory at (d, ef, E, R0) = {shape},"
+                    f" beam_loop.py counts {_smem_bytes(*shape)}"
+                )
         _LIB = lib
     return _LIB
 

@@ -279,3 +279,32 @@ def test_int8_beam_matches_jax_and_packed_matches_row_dequant(metric):
     np.testing.assert_allclose(np.sort(pd.numpy(), axis=1)[:, : ef // 2],
                                np.sort(rd.numpy(), axis=1)[:, : ef // 2],
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype,r0", [("float32", 12), ("bfloat16", 12),
+                                      ("float32", 20), ("bfloat16", 24)])
+def test_gather_block_dots_plain_at_search_degree_widths(dtype, r0):
+    """``search_degree`` cuts each packed block to its first ``r0`` rows (12,
+    20, 24 of 32), widths the TPU kernel's sublane rule refuses: the plain
+    version over the cut table equals JAX's kernel (interpret mode) over the
+    uncut one, on the cut rows; dead lanes exactly 0."""
+    rng = np.random.default_rng(100 + r0)
+    cap, full, d, e, b = 64, 32, 128, 3, 12
+    table = torch.from_numpy(
+        rng.standard_normal((cap, full, d)).astype(np.float32)
+    ).to(getattr(torch, dtype))
+    cut = table[:, :r0].contiguous()
+    q = rng.standard_normal((b, d)).astype(np.float32)
+    idx, dead = _picks(rng, b, e, cap)
+    wd, wc = jax_gather_block_dots(
+        jnp.asarray(q), jnp.asarray(idx),
+        jnp.asarray(table.float().numpy()).astype(getattr(jnp, dtype)),
+        interpret=True,
+    )
+    wd = np.asarray(wd).reshape(b, e, full)[:, :, :r0].reshape(b, e * r0)
+    wc = np.asarray(wc).reshape(b, e, full)[:, :, :r0].reshape(b, e * r0)
+    gd, gc = gather_block_dots(torch.from_numpy(q), torch.from_numpy(idx), cut)
+    lanes = np.repeat(dead, r0, axis=1)
+    np.testing.assert_allclose(gd.numpy()[~lanes], wd[~lanes], rtol=1e-5, atol=1e-5)
+    np.testing.assert_allclose(gc.numpy()[~lanes], wc[~lanes], rtol=1e-5, atol=1e-5)
+    assert (gd.numpy()[lanes] == 0).all() and (gc.numpy()[lanes] == 0).all()

@@ -10,6 +10,9 @@ plain loop equals the port's own fused beam (``_beam_search_level0`` over
 packed blocks).
 """
 
+import re
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -19,8 +22,10 @@ from muninn_tpu.ops.distance import Metric as JaxMetric
 from muninn_tpu.ops.pallas_beam_loop import beam_loop as jax_beam_loop
 from muninn_tpu.ops.pallas_beam_loop import pack_wide as jax_pack_wide
 from muninn_tpu.ops.pallas_beam_loop import split_id_bytes as jax_split_id_bytes
+from muninn_tpu.index.hnsw import _beam_search_level0 as jax_beam
 from muninn_tpu_torch.index.hnsw import _beam_search_level0
 from muninn_tpu_torch.ops import _build
+from muninn_tpu_torch.ops import beam_loop as beam_loop_mod
 from muninn_tpu_torch.ops.beam_loop import (
     ID_LANES,
     MAX_CANDIDATES,
@@ -229,3 +234,101 @@ def test_beam_loop_counts_and_early_stop():
     assert torch.equal(i0, i1) and torch.equal(d0, d1) and (n0, f0) == (n1, f1)
     assert 0 < f0 <= n0 * 16 and n0 <= 16 * 24 * expand
     assert bool((d0[:, 1:] >= d0[:, :-1]).all())
+
+
+def _grid_case(seed, r0_full, r0, metric, b=20, ef=24, expand=4, mi=6):
+    """Integer-grid rows over a random graph whose neighbour rows are cut
+    to their first ``r0`` of ``r0_full`` columns, as ``search_degree``
+    slices them: (q, entries, vecs, cut ids, the plain loop's result)."""
+    rng = np.random.default_rng(seed)
+    d, cap = 128, 300
+    vecs = _grid(rng, (cap, d))
+    nbrs = rng.integers(-1, cap, (cap, r0_full)).astype(np.int32)[:, :r0].copy()
+    q = _grid(rng, (b, d))
+    entries = rng.integers(0, cap, (b, 4)).astype(np.int32)
+    v16 = torch.from_numpy(vecs).bfloat16()
+    init_d, init_i = _init_beam(q, entries, v16, metric, ef)
+    packed = v16[torch.from_numpy(nbrs).clamp(min=0).long()]
+    td, ti, _, _ = beam_loop_plain(
+        torch.from_numpy(q), torch.from_numpy(init_d), torch.from_numpy(init_i),
+        packed, torch.from_numpy(nbrs), metric, ef, expand, 0, mi)
+    return q, entries, vecs, nbrs, init_d, init_i, td, ti
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_beam_loop_plain_bit_equal_to_jax_kernel_at_search_degree_16(metric):
+    """``search_degree = 16`` of a 32-wide graph, the narrowest cut the TPU
+    kernel takes (R0 % 16): the plain loop's slots bit-equal to JAX's kernel
+    in interpret mode on integer-grid rows, distances within 1e-6."""
+    ef, expand = 24, 4
+    q, _, vecs, nbrs, init_d, init_i, td, ti = _grid_case(60, 32, 16, metric)
+    jd, ji = jax_beam_loop(
+        jnp.asarray(q), jnp.asarray(init_d), jnp.asarray(init_i),
+        jax_pack_wide(jnp.asarray(vecs, jnp.bfloat16), jnp.asarray(nbrs)),
+        metric=JaxMetric(metric), ef=ef, expand=expand, max_iters=6,
+        interpret=True,
+    )
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_allclose(np.nan_to_num(td.numpy(), posinf=1e38),
+                               np.nan_to_num(np.asarray(jd), posinf=1e38),
+                               rtol=1e-6, atol=1e-6)
+
+
+@pytest.mark.parametrize("metric", METRICS)
+def test_beam_loop_plain_bit_equal_to_jax_packed_beam_at_search_degree_12(metric):
+    """``search_degree = 12`` of a 32-wide graph, a width JAX's kernels
+    refuse: the plain loop against JAX's beam over the same cut packed
+    blocks (``_beam_search_level0``, XLA branch), bit-equal slots and
+    distances on integer-grid rows."""
+    ef, expand = 24, 4
+    q, entries, vecs, nbrs, _, _, td, ti = _grid_case(70, 32, 12, metric)
+    packed = torch.from_numpy(vecs).bfloat16()[torch.from_numpy(nbrs).clamp(min=0).long()]
+    jd, ji = jax_beam(
+        jnp.asarray(q), jnp.asarray(entries), jnp.asarray(vecs, jnp.bfloat16),
+        jnp.asarray(nbrs), JaxMetric(metric), ef, expand=expand, max_iters=6,
+        packed=jnp.asarray(packed.float().numpy(), jnp.bfloat16),
+    )
+    np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
+    np.testing.assert_array_equal(np.nan_to_num(td.numpy(), posinf=1e38),
+                                  np.nan_to_num(np.asarray(jd), posinf=1e38))
+
+
+def _source_smem_words():
+    """``smem_words`` and ``kScratchWords`` as csrc/beam_loop.cu writes
+    them, as a function of (dq, ef, e, c, h)."""
+    src = (Path(beam_loop_mod.__file__).parents[1] / "csrc" / "beam_loop.cu").read_text()
+    expr = re.search(r"smem_words\([^)]*\)\s*\{\s*return ([^;]+);", src).group(1)
+    scratch = int(re.search(r"constexpr int kScratchWords = (\d+);", src).group(1))
+    return lambda dq, ef, e, c, h: eval(
+        expr, {"dq": dq, "ef": ef, "e": e, "c": c, "h": h, "kScratchWords": scratch})
+
+
+@pytest.mark.parametrize("d,ef,e,r0", [
+    (384, 24, 8, 32), (37, 5, 3, 12), (1024, MAX_EF, 128, 32),
+    (1024, MAX_EF, MAX_EF, 4), (1024, MAX_EF, 1, MAX_CANDIDATES),
+    (40_000, MAX_EF, 128, 32), (58_000, 24, 8, 32), (1, 1, 1, 1)])
+def test_smem_bytes_is_the_sources_count(d, ef, e, r0):
+    """``_smem_bytes`` is the source's ``smem_words`` at the plan's hash
+    size and query placement, 4 bytes a word; the plan fits a block, keeps
+    the hash at least as large as the step's ids, and keeps the query in
+    shared memory at d = 1,024 even at ``MAX_EF`` and ``MAX_CANDIDATES``."""
+    h, qsm, nbytes = beam_loop_mod._plan(d, ef, e, r0)
+    dq = -(-d // 4) * 4 if qsm else 0
+    assert nbytes == 4 * _source_smem_words()(dq, ef, e, e * r0, h)
+    assert nbytes == beam_loop_mod._smem_bytes(d, ef, e, r0)
+    assert nbytes <= beam_loop_mod._SMEM_BYTES
+    assert h >= ef + e * r0 and h & (h - 1) == 0
+    if d <= 1024:
+        assert qsm
+
+
+def test_every_shape_of_the_limits_fits():
+    """No (d, ef, E, R0) within ``MAX_EF`` and ``MAX_CANDIDATES`` is refused
+    for shared memory: every one the previous layout (4 * (d + 6 ef +
+    3 E*R0 + E) bytes) took, and wider queries too."""
+    for d in (1, 100, 384, 1024, 20_000, 40_000, 58_000, 1 << 20):
+        for ef in (1, 24, 257, MAX_EF):
+            for e, r0 in ((1, 1), (1, 32), (8, 32), (ef, 4), (128, 32), (1, MAX_CANDIDATES)):
+                if e > ef or e * r0 > MAX_CANDIDATES:
+                    continue
+                assert beam_loop_mod._smem_bytes(d, ef, e, r0) <= beam_loop_mod._SMEM_BYTES
