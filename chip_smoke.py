@@ -120,7 +120,24 @@ Phases, each of which exits non-zero on failure:
    ``gather_rows`` of the HNSW rescore's shape (8,192 x 24 random rows of
    phase 4's 100k x 384 f32 rows) with its launch counted, timed against
    plain and ``torch.index_select`` (printed side by side, no hard check:
-   the two move by about 10% between calls).
+   the two move by about 10% between calls);
+15. the churn path at full width (``bench.py:428-471``) on phase 10's
+   index: 32,768 more rows of phase 4's recipe (its centres) inserted in
+   waves of 2,048 (one warm, then 15 timed: ``incr_insert_vec_per_s``),
+   then 1,024 ids deleted at a time (one warm, then 7 timed:
+   ``delete_repair_per_s``), slots 0..8,191 in all; every wave's
+   ``flat_topk`` launch the tensor-core kernel's, every repair launch the
+   f32 kernel's; no live edge (level 0 or, after the queued promotions are
+   wired, above) points at a tombstone; the first 2,048 queries searched at
+   k=10, ef=32 by the row path (no repack), the fused beam after
+   ``pack_neighbors()`` (``beam_dots`` launched) and ``beam_whole``
+   (``beam_loop`` launched): no deleted id, exact distances, recall@10
+   against exact ``highest`` over the live rows at least 0.95 each; then
+   the kernels against plain at the slice's shapes (the last wave's
+   candidate call, bf16; a repair call, ``highest``; an all-masked corpus
+   in both modes; ``beam_loop`` on a 2,816-query chunk of the churned
+   graph, beam overlap at least 0.99), the two flat calls timed against
+   plain and their library calls; and two waves into an empty index.
 
 Each kernel's record carries its bound: the larger of the operations over
 the card's peak rate for their type and the bytes (each input read once,
@@ -358,18 +375,23 @@ def unit_rows(x: np.ndarray) -> np.ndarray:
     return x / np.linalg.norm(x, axis=1, keepdims=True)
 
 
-def clustered(rng, n, d, n_clusters, n_queries):
+def clustered(rng, n, d, n_clusters, n_queries, extra):
     """The recipe of bench.py: Gaussian cluster centres, rows = centre +
     0.3 noise, unit-normalised; queries = corpus rows + 0.05 noise,
-    re-normalised."""
+    re-normalised; then ``extra`` more rows about the same centres (the
+    churn rows, drawn last so that they change nothing before them)."""
     centres = rng.standard_normal((n_clusters, d), dtype=np.float32)
-    x = centres[rng.integers(0, n_clusters, n)]
-    x += 0.3 * rng.standard_normal((n, d), dtype=np.float32)
-    x /= np.linalg.norm(x, axis=1, keepdims=True)
+
+    def rows(count):
+        x = centres[rng.integers(0, n_clusters, count)]
+        x += 0.3 * rng.standard_normal((count, d), dtype=np.float32)
+        return x / np.linalg.norm(x, axis=1, keepdims=True)
+
+    x = rows(n)
     q = x[rng.integers(0, n, n_queries)]
     q = q + 0.05 * rng.standard_normal((n_queries, d), dtype=np.float32)
     q /= np.linalg.norm(q, axis=1, keepdims=True)
-    return x, q
+    return x, q, rows(extra)
 
 
 def clustered_on_device(gen, n, d, n_clusters, n_queries):
@@ -391,6 +413,7 @@ def main() -> int:
               file=sys.stderr)
         return 2
     from muninn_tpu_torch import FlatIndex, HnswIndex, QuantizedFlatIndex
+    from muninn_tpu_torch.index import hnsw as hnsw_mod
     from muninn_tpu_torch.index.hnsw import _route
     from muninn_tpu_torch.ops import _build, beam
     from muninn_tpu_torch.ops import beam_loop as beam_loop_mod
@@ -516,7 +539,8 @@ def main() -> int:
     # 4. main path at bench.py's headline shape
     n, d, nq, k = 100_000, 384, 8192, 10
     t0 = time.perf_counter()
-    x, qq = clustered(np.random.default_rng(7), n, d, 1000, nq)
+    churn = 32_768  # phase 15's rows
+    x, qq, x15 = clustered(np.random.default_rng(7), n, d, 1000, nq, churn)
     print(f"data: {n} x {d} corpus, {nq} queries in"
           f" {time.perf_counter() - t0:.1f} s")
     ext = np.arange(n, dtype=np.int64) + 10_000_000
@@ -952,7 +976,7 @@ def main() -> int:
     # 10. the HNSW main path at bench.py's HNSW workload, on phase 4's data
     ef, m, wave = 24, 16, 4096
     hnsw = HnswIndex(d, "cosine", m=m, ef_construction=200,
-                     capacity=n + 32_768 + wave, seed=42, expand=8,
+                     capacity=n + churn + wave, seed=42, expand=8,
                      wave_size=wave, device="cuda")
     _build.reset_launches()
     t0 = time.perf_counter()
@@ -1314,13 +1338,214 @@ def main() -> int:
           f" {gather_library_ms:.4f} ms; bound {gather_bound_ms:.4f} ms"
           f" ({gather_bound_by})", flush=True)
 
+    # 15. the churn path at full width (bench.py:428-471) on phase 10's index
+    wave15, kill15, ef15, nq15 = 2048, 1024, 32, 2048
+    ext15 = ext[0] + n + np.arange(churn, dtype=np.int64)
+    hnsw.beam_whole = False
+    hnsw.wave_size = wave15
+    hnsw.insert(ext15[:wave15], x15[:wave15])  # warm wave
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    for s15 in range(wave15, churn, wave15):
+        hnsw.insert(ext15[s15 : s15 + wave15], x15[s15 : s15 + wave15])
+    torch.cuda.synchronize()
+    incr_rate = (churn - wave15) / (time.perf_counter() - t0)
+    wave_launches = dict(_build.LAUNCHES)
+    n_waves = churn // wave15 - 1
+    check(wave_launches["flat_topk"] == n_waves
+          and wave_launches["flat_topk_mma"] == n_waves
+          and sum(wave_launches.values()) == 2 * n_waves,
+          f"{n_waves} insert waves launched {wave_launches}")
+    # the last wave's candidate call: its rows against the rows up to the
+    # high watermark, its own rows still invalid
+    hw15 = hnsw.store.high_watermark
+    cw = hnsw.store.vectors[:hw15]
+    qw = cw[hw15 - wave15 :].clone()
+    vw = hnsw.store.valid[:hw15].clone()
+    vw[hw15 - wave15 :] = False
+
+    dead15 = ext[: 8 * kill15]
+    repair_calls = []
+    real_flat_topk = hnsw_mod.flat_topk
+
+    def recording(*args, **kwargs):
+        repair_calls.append((args, kwargs))
+        return real_flat_topk(*args, **kwargs)
+
+    hnsw_mod.flat_topk = recording  # the warm delete's repair calls, kept
+    try:
+        hnsw.delete(dead15[:kill15])
+    finally:
+        hnsw_mod.flat_topk = real_flat_topk
+    torch.cuda.synchronize()
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    for s15 in range(kill15, 8 * kill15, kill15):
+        hnsw.delete(dead15[s15 : s15 + kill15])
+    torch.cuda.synchronize()
+    delete_rate = 7 * kill15 / (time.perf_counter() - t0)
+    del_launches = dict(_build.LAUNCHES)
+    check(del_launches["flat_topk"] > 0 and del_launches["flat_topk_mma"] == 0
+          and sum(del_launches.values()) == del_launches["flat_topk"],
+          f"7 delete waves launched {del_launches}")
+    check(len(hnsw) == n + churn - 8 * kill15, f"churned count {len(hnsw)}")
+    hnsw._flush_hi_wiring()
+    valid15 = hnsw.store.valid.cpu().numpy()
+    check(not valid15[: 8 * kill15].any() and valid15[8 * kill15 : n + churn].all(),
+          "validity after churn")
+    nb15 = hnsw.neighbors0.cpu().numpy()[valid15]
+    hi15 = hnsw.hi_neighbors.cpu().numpy()
+    for what, t15 in (("level-0", nb15), ("upper-level", hi15)):
+        stale = int(((t15 >= 0) & ~valid15[np.maximum(t15, 0)]).sum())
+        check(stale == 0, f"{stale} live {what} edges point at tombstones")
+    part_empty = int((nb15 < 0).any(axis=1).sum())
+
+    x_all = np.concatenate([x, x15])
+    q15, qg15 = qq[:nq15], qg[:nq15]
+    _, tslot = flat_topk(qg15, hnsw.store.vectors[:hw15], k, metric="cosine",
+                         corpus_valid=hnsw.store.valid[:hw15])
+    truth15 = hnsw.store.ids_of(tslot.cpu().numpy())
+
+    def check_churn(cids, cd, what: str) -> float:
+        """A search after churn: every query answered, no deleted id, each
+        distance the exact float64 distance of its row, recall@k against
+        exact highest over the live rows at least MIN_HNSW_RECALL."""
+        check(cids.shape == (nq15, k) and bool((cids >= 0).all())
+              and bool(np.isfinite(cd).all()), f"{what}: a missing result")
+        check(not np.isin(cids, dead15).any(), f"{what}: a deleted id came back")
+        true = dist64(np.repeat(q15, k, axis=0), x_all[(cids - ext[0]).reshape(-1)],
+                      "cosine").reshape(nq15, k)
+        np.testing.assert_allclose(cd, true, rtol=TOL, atol=TOL)
+        rec = recall(cids, truth15)
+        check(rec >= MIN_HNSW_RECALL, f"{what} recall@{k} {rec} < {MIN_HNSW_RECALL}")
+        return rec
+
+    check(hnsw._maybe_packed() is None, "churn repacked the neighbour table")
+    churn15 = {}
+    for engine in ("row", "fused", "whole"):
+        if engine == "fused":
+            hnsw.pack_neighbors()
+        hnsw.beam_whole = engine == "whole"
+        _build.reset_launches()
+        cids, cd = hnsw.search(q15, k=k, ef_search=ef15)
+        torch.cuda.synchronize()
+        launches15 = dict(_build.LAUNCHES)
+        want = {"row": ("flat_topk", None), "fused": ("beam_dots", "beam_loop"),
+                "whole": ("beam_loop", "beam_dots")}[engine]
+        check(launches15["flat_topk"] > 0 and launches15[want[0]] > 0
+              and (want[1] is None or launches15[want[1]] == 0)
+              and (engine != "row" or launches15["beam_dots"] == 0),
+              f"{engine} search after churn launches {launches15}")
+        churn15[engine] = (check_churn(cids, cd, f"{engine} search after churn"),
+                           device_ms(lambda: hnsw.search_device(qg15, k, ef15), reps=3),
+                           launches15)
+    hnsw.beam_whole = False
+    print(f"{card_line()}: churn at 100k x 384, m={m}: incr_insert_vec_per_s"
+          f" {incr_rate:.1f} ({n_waves} waves of {wave15}), delete_repair_per_s"
+          f" {delete_rate:.1f} (7 deletes of {kill15}); {len(hnsw)} live rows,"
+          f" {part_empty} of them with a part-empty neighbour row; launches per"
+          f" {n_waves} waves {wave_launches}, per 7 deletes {del_launches}",
+          flush=True)
+    for engine, (rec, ms15, l15) in churn15.items():
+        print(f"  {engine} search after churn, {nq15} queries, ef={ef15}:"
+              f" churn_recall_at_10 {rec}; {ms15:.3f} ms"
+              f" ({nq15 / ms15 * 1e3:.0f} QPS); launches {l15}", flush=True)
+
+    # the kernels against plain at the slice's shapes: the last wave's call
+    kdw, kiw = flat_topk_cuda(qw, cw, hnsw.m0, metric="cosine", corpus_valid=vw,
+                              precision="default")
+    torch.cuda.synchronize()
+    pdw, piw = flat_topk_plain(qw, cw, hnsw.m0, metric="cosine", corpus_valid=vw,
+                               precision="default")
+    bf_err = max(bf_err, compare(kdw, kiw, pdw, piw, qw, cw, vw, "cosine",
+                                 ref=dist64_bf16))
+    wave_ms = device_ms(lambda: flat_topk(qw, cw, hnsw.m0, metric="cosine",
+                                          corpus_valid=vw, precision="default"))
+    wave_plain_ms = device_ms(lambda: flat_topk_plain(
+        qw, cw, hnsw.m0, metric="cosine", corpus_valid=vw, precision="default"))
+    wave_library_ms = device_ms(lambda: bf16_library(qw, cw, vw, hnsw.m0))
+    wave_bound, wave_bound_by = bound(
+        2.0 * wave15 * hw15 * d, "bf16",
+        4.0 * (hw15 + wave15) * d + hw15 + 8.0 * wave15 * hnsw.m0)
+    # a repair call of the warm delete: affected rows against the pool
+    (rq, rc, rk), rkw = repair_calls[0]
+    check(rkw["precision"] == "highest" and rk == hnsw.m0 + 1,
+          f"the repair call's k {rk}, {rkw}")
+    kdr, kir = flat_topk_cuda(rq, rc, rk, metric="cosine")
+    torch.cuda.synchronize()
+    pdr, pir = flat_topk_plain(rq, rc, rk, metric="cosine")
+    repair_err = compare(kdr, kir, pdr, pir, rq, rc, None, "cosine")
+    all_rc = torch.ones(rc.shape[0], dtype=torch.bool, device="cuda")
+    repair_ms = device_ms(lambda: flat_topk(rq, rc, rk, metric="cosine"))
+    repair_plain_ms = device_ms(lambda: flat_topk_plain(rq, rc, rk, metric="cosine"))
+    repair_library_ms = device_ms(lambda: f32_library(rq, rc, all_rc, rk))
+    repair_bound, repair_bound_by = bound(
+        2.0 * rq.shape[0] * rc.shape[0] * d, "fp32",
+        4.0 * (rq.shape[0] + rc.shape[0]) * d + 8.0 * rq.shape[0] * rk)
+    # an all-masked corpus: the first wave into an empty index
+    none_valid = torch.zeros(wave15, dtype=torch.bool, device="cuda")
+    for prec, km in (("default", hnsw.m0), ("highest", hnsw.m0 + 1)):
+        for fn in (flat_topk_cuda, flat_topk_plain):
+            md, mi = fn(qw, qw, km, metric="cosine", corpus_valid=none_valid,
+                        precision=prec)
+            torch.cuda.synchronize()
+            check(bool(torch.isinf(md).all() and (mi == -1).all()),
+                  f"{fn.__name__} ({prec}) over an all-masked corpus")
+    print(f"flat_topk at the churn's calls: wave [{wave15}, {d}] x [{hw15}, {d}]"
+          f" bf16, k={hnsw.m0}, {int(vw.sum())} valid: kernel {wave_ms:.4f} ms,"
+          f" plain {wave_plain_ms:.4f} ms, library {wave_library_ms:.4f} ms; bound"
+          f" {wave_bound:.4f} ms ({wave_bound_by}); repair [{rq.shape[0]}, {d}] x"
+          f" [{rc.shape[0]}, {d}] highest, k={rk} ({len(repair_calls)} calls in the"
+          f" warm delete): kernel {repair_ms:.4f} ms, plain {repair_plain_ms:.4f} ms,"
+          f" library {repair_library_ms:.4f} ms; bound {repair_bound:.4f} ms"
+          f" ({repair_bound_by}); max |d| error {repair_err:.3g}; an all-masked"
+          f" corpus gives (inf, -1) in both modes", flush=True)
+    del cw, qw, vw, kdw, pdw, repair_calls, rq, rc
+
+    # beam_loop on a chunk of the churned graph: tombstones and part-empty rows
+    pool15 = hnsw._routing_pool()
+    r15 = min(hnsw.route_entries, ef15)
+    ent = _route(qc, pool15, hnsw._pool_vecs(pool15), hnsw.metric, r15)
+    init_d = torch.full((chunk, ef15), torch.inf, device="cuda")
+    init_i = torch.full((chunk, ef15), -1, dtype=torch.int32, device="cuda")
+    init_d[:, :r15] = torch.where(
+        ent >= 0, gathered_distances(qc, hnsw._vecs16()[ent.clamp(min=0).long()].float(),
+                                     "cosine"), torch.inf)
+    init_i[:, :r15] = ent
+    args15 = (qc, init_d, init_i, hnsw._maybe_packed(), hnsw.neighbors0, "cosine",
+              ef15, hnsw.expand, 0, -(-ef15 // hnsw.expand) + 1)
+    kd15, ki15 = beam_loop_cuda(*args15)
+    torch.cuda.synchronize()
+    pd15, pi15, _, _ = beam_loop_plain(*args15)
+    churn_overlap = beam_overlap(ki15, pi15)
+    check(churn_overlap >= 0.99, f"beam_loop: churned-graph beam overlap {churn_overlap}")
+    loop_err = max(loop_err, agreeing_err(kd15, ki15, pd15, pi15))
+    print(f"beam_loop on the churned graph, [{chunk}] queries, ef={ef15}: beam"
+          f" overlap {churn_overlap:.5f}", flush=True)
+
+    # waves into an empty index: the first one's corpus is all masked
+    empty15 = HnswIndex(d, "cosine", m=m, wave_size=wave15, capacity=4096, seed=42,
+                      device="cuda")
+    _build.reset_launches()
+    empty15.insert(ext[:3000], x[:3000])
+    torch.cuda.synchronize()
+    check(_build.LAUNCHES["flat_topk_mma"] == 2 and len(empty15) == 3000,
+          f"two waves into an empty index launched {dict(_build.LAUNCHES)}")
+    nbf = empty15.neighbors0[:3000]
+    check(bool((nbf[:, 0] >= 0).all() and (nbf < 3000).all()),
+          "a row of the first waves without neighbours")
+    fids, _ = empty15.search(qq[:64], k=k)
+    check(bool((fids >= 0).all()), "search after waves into an empty index")
+    del empty15, nbf
+
     print(json.dumps({"kernels": [{
         "name": "flat_topk",
         "route": "cuda",
         "source": "muninn_tpu_torch/csrc/flat_topk.cu",
         "replaces": "muninn_tpu/ops/pallas_flat.py:49",
         "launches": launches,
-        "max_abs_err": max(max_err, main_err, err5),
+        "max_abs_err": max(max_err, main_err, err5, repair_err),
         "ms": ms,
         "plain_ms": plain_ms,
         "bound_ms": f32_bound,
@@ -1332,6 +1557,12 @@ def main() -> int:
         "bound_ms_1m_768": bound5,
         "library_ms_1m_768": library_ms5,
         "gemm_ms_1m_768": gemm_ms5,
+        "launches_repair_7_deletes": del_launches["flat_topk"],
+        "ms_repair": repair_ms,
+        "plain_ms_repair": repair_plain_ms,
+        "bound_ms_repair": repair_bound,
+        "bound_by_repair": repair_bound_by,
+        "library_ms_repair": repair_library_ms,
     }, {
         "name": "flat_topk_bf16",
         "route": "cuda",
@@ -1346,6 +1577,12 @@ def main() -> int:
         "bound_by": bound_def_by,
         "library_ms": library_ms_def,
         "gemm_ms": gemm_ms_def,
+        "launches_15_waves": wave_launches["flat_topk_mma"],
+        "ms_wave": wave_ms,
+        "plain_ms_wave": wave_plain_ms,
+        "bound_ms_wave": wave_bound,
+        "bound_by_wave": wave_bound_by,
+        "library_ms_wave": wave_library_ms,
     }, {
         "name": "flat_topk_int8",
         "route": "cuda",
@@ -1414,6 +1651,8 @@ def main() -> int:
         "search_ms": whole_search_ms,
         "fused_search_ms": fused13_ms,
         "recall": whole_recall,
+        "launches_churn_search": churn15["whole"][2]["beam_loop"],
+        "churn_beam_overlap": churn_overlap,
     }, {
         "name": "gather_rows",
         "route": "cuda",

@@ -10,9 +10,12 @@ reference. So far it carries:
   then an exact f32 rescore), and ``QuantizedFlatIndex`` (int8 storage),
   through the hand-written CUDA kernel ``csrc/flat_topk.cu`` (f32, bf16 and
   int8 operand modes);
-- HNSW: ``HnswIndex`` bulk build and search (exact routing, a bf16 or
-  int8-guided beam over packed neighbour blocks, exact rescore), through
-  ``csrc/flat_topk.cu`` and ``csrc/beam_dots.cu``; with bf16 guidance also
+- HNSW: ``HnswIndex`` bulk build, insert waves (MN-RU prune, deferred
+  upper-level wiring), delete with repair, and search (exact routing, a
+  bf16 or int8-guided beam over packed neighbour blocks, exact rescore;
+  f32 routing and beam with ``search_bf16 = False``), through
+  ``csrc/flat_topk.cu``, ``csrc/flat_topk_mma.cu`` and
+  ``csrc/beam_dots.cu``; with bf16 guidance also
   the top-m beam (``beam_topm``, the top-m mode of ``csrc/beam_dots.cu``)
   and the whole beam in one kernel (``beam_whole``, ``csrc/beam_loop.cu``);
 - the row gather ``ops.gather.gather_rows`` (``csrc/gather_rows.cu``),

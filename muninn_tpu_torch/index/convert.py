@@ -186,7 +186,9 @@ def hnsw_index_from_numpy(state: dict,
 
 def hnsw_index_to_numpy(index: HnswIndex) -> dict:
     """The state of ``index`` as numpy arrays and Python scalars (see the
-    module docstring)."""
+    module docstring). Queued upper-level wiring is flushed first, as
+    ``save_hnsw`` flushes it (``checkpoint.py:54``)."""
+    index._flush_hi_wiring()
     st = index.store
     return {
         "vectors": st.vectors.cpu().numpy().copy(),

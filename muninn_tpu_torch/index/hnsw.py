@@ -1,5 +1,6 @@
 """HNSW approximate nearest-neighbour index, the PyTorch port of
-``muninn_tpu/index/hnsw.py``: its bulk build and its search paths.
+``muninn_tpu/index/hnsw.py``: bulk build, insert waves, delete with
+repair, and every search route.
 
 - Storage as in the JAX package: dense slots in a ``VectorStore``, the
   level-0 graph as ``int32 [cap, 2M]`` neighbour and ``f32 [cap, 2M]`` edge
@@ -13,6 +14,18 @@
   8,192 rows with ``flat_topk`` at ``build_precision``, symmetrised by one
   reverse-append pass and pruned back to ``2M`` by distance; upper levels
   are wired exactly, closest ``M`` within each level's population.
+- Insert waves (every other insert, ``wave_size`` rows at a time): the
+  wave's candidates are one ``flat_topk`` over the pre-wave live rows at
+  ``build_precision`` (``insert_mode = "exact"``), or an f32 level-0 beam
+  at ``ef_construction`` (``"beam"``), merged with the wave's own closest
+  rows; the closest ``2M`` are wired forward, then reverse, and the rows
+  that gained edges are pruned by (distance ascending, mutual-neighbour
+  count descending), the MN-RU rule (``mn_ru``). Upper levels of a wave's
+  promoted nodes are queued and wired exactly by ``_flush_hi_wiring``.
+- Delete: soft delete, then every live row that pointed at a deleted slot
+  drops those edges and refills from the deleted nodes' former
+  neighbourhoods (``flat_topk`` at ``highest``); the entry point is
+  rescanned when it died.
 - Search: exact routing over the promoted pool (``flat_topk`` at
   ``precision="default"``), a level-0 beam guided by bf16 vectors, or by
   int8 ones with one scale per row (``search_quant = "int8"``), whose
@@ -23,17 +36,17 @@
   keeps each pick's best candidates in ``ops.beam.gather_block_topm``, and
   ``beam_whole`` runs the whole beam in one ``ops.beam_loop.beam_loop``
   kernel per query. ``search_degree`` searches only the first columns of
-  each neighbour row, in every engine.
+  each neighbour row, in every engine. A graph without promoted nodes
+  starts its beam at the entry point, and ``search_bf16 = False`` routes
+  and searches in f32 (``_search_slots``).
 
 PyTorch runs eagerly: the beam's ``lax.while_loop`` is a Python loop of at
 most ``max_iters`` steps that reads ``live.any()`` once per step. The JAX
 package's ``.at[...].set(..., mode="drop")`` has no PyTorch counterpart (an
 out-of-range index is a device-side assert on CUDA), so every scatter
-here masks its out-of-range indices out first.
-
-Not ported yet (see ROADMAP.md, queue 1): insert waves into a non-empty
-index, delete and repair, MN-RU prunes, and greedy descent on a graph
-without promoted nodes.
+here masks its out-of-range indices out first, and the JAX package's
+padding of waves, deletes and pools to compiled shapes is left out where
+it changes no result.
 """
 
 from __future__ import annotations
@@ -60,12 +73,21 @@ from muninn_tpu_torch.ops.distance import (
     squared_norms,
 )
 from muninn_tpu_torch.ops.flat_topk import flat_topk
-from muninn_tpu_torch.ops.topk import masked_topk, smallest_k, sorted_topk_unique
+from muninn_tpu_torch.ops.topk import (
+    _dedup_ids,
+    masked_topk,
+    merge_topk,
+    smallest_k,
+    sorted_topk_unique,
+)
 
 HNSW_MAX_LEVELS = 32  # the reference's cap, src/hnsw_algo.h:14
 _SWEEP_ROWS = 8192    # rows per chunk of the bulk kNN sweep and the prune
+_PRUNE_ROWS = 4096    # rows per chunk of an MN-RU prune: [rows, 4M * 2M] reads
+_REPAIR_ROWS = 4096   # affected rows per repair call of a delete
 _INF = float("inf")
 SEARCH_QUANTS = ("bf16", "int8")  # the beam's guidance rows
+INSERT_MODES = ("exact", "beam")  # a wave's candidate source
 
 
 def _pow2_pad(members: np.ndarray) -> np.ndarray:
@@ -75,6 +97,61 @@ def _pow2_pad(members: np.ndarray) -> np.ndarray:
 
 
 # ───────────────────────── search ─────────────────────────
+
+
+def _greedy_descent(
+    queries: torch.Tensor,         # [B, d]
+    entry: torch.Tensor,           # [B] int32 starting slots
+    level_of_query: torch.Tensor,  # [B] int32: descend while level > this
+    vectors: torch.Tensor,         # [cap, d]
+    hi_index: torch.Tensor,        # [cap] int32 -> row of hi_neighbors, -1
+    hi_neighbors: torch.Tensor,    # [cap_hi, L, M] int32
+    cur_max_level: int,
+    metric: Metric,
+    max_steps: int = 64,
+) -> torch.Tensor:
+    """Greedy 1-beam descent through the upper levels, batched over queries
+    (``hnsw.py:75-144``, ``greedy_search_layer`` of src/hnsw_algo.c:257-282
+    from the top level down). Eight levels from ``cur_max_level`` down; at
+    each, a query above its ``level_of_query`` moves to its closest
+    neighbour while that improves, at most ``max_steps`` steps a level for
+    the batch. Returns the slots the descent ends on. Neither package's
+    search calls it (exact routing over the promoted pool replaces it)."""
+    b = queries.shape[0]
+    width = hi_neighbors.shape[1]
+    cur = entry.clone()
+    for lvl_from_top in range(8):
+        level = cur_max_level - lvl_from_top
+        active = level > level_of_query
+        lvl_row = min(max(level - 1, 0), width - 1)
+        cur_d = gathered_distances(queries, vectors[cur.clamp(min=0).long()][:, None],
+                                   metric)[:, 0]
+        cur_d = torch.where(cur >= 0, cur_d, _INF)
+        improved = torch.ones(b, dtype=torch.bool, device=queries.device)
+        it = 0
+        while bool(improved.any()) and it < max_steps:
+            rows = hi_index[cur.clamp(min=0).long()]
+            nbrs = hi_neighbors[rows.clamp(min=0).long(), lvl_row]
+            nbrs = torch.where((rows >= 0)[:, None], nbrs, -1)
+            nd = gathered_distances(queries, vectors[nbrs.clamp(min=0).long()], metric)
+            nd = torch.where(nbrs >= 0, nd, _INF)
+            best_d, best = smallest_k(nd, 1)
+            best_i = torch.gather(nbrs, 1, best)[:, 0]
+            improved = (best_d[:, 0] < cur_d) & active
+            cur = torch.where(improved, best_i, cur)
+            cur_d = torch.where(improved, best_d[:, 0], cur_d)
+            it += 1
+    return cur
+
+
+def _route_entries(q: torch.Tensor, vectors: torch.Tensor, pool: torch.Tensor,
+                   metric: Metric, r: int) -> torch.Tensor:
+    """Exact f32 routing (``hnsw.py:148-164``): the ``r`` nearest promoted
+    slots of each query by ``pairwise_distances`` over the pooled rows, -1
+    where the pool has fewer."""
+    dd = pairwise_distances(q, vectors[pool.clamp(min=0).long()], metric)
+    _, sel = masked_topk(dd, r, mask=(pool >= 0)[None, :], ids=pool[None, :])
+    return sel
 
 
 def _beam_search_level0(
@@ -335,15 +412,62 @@ def _grouped_bounded_append(tgt_raw, src, dd, cap: int, a_max: int):
     return append_i.reshape(cap, a_max), append_d.reshape(cap, a_max)
 
 
-def _prune_rows(neighbors0, dists0, append_i, append_d, aff, m_max: int):
-    """Merge the appended reverse edges into rows ``aff`` and keep the
-    closest ``m_max``, in place (``_prune_rows_impl`` without the MN-RU
-    tiebreak, the branch a bulk build takes)."""
-    cat_i = torch.cat([neighbors0[aff], append_i[aff]], dim=1)
-    cat_d = torch.cat([dists0[aff], append_d[aff]], dim=1)
-    new_d, new_i = sorted_topk_unique(cat_d, cat_i, m_max)
-    neighbors0[aff] = new_i
-    dists0[aff] = torch.where(new_i >= 0, new_d, _INF)
+def _lexsort(minor: torch.Tensor, major: torch.Tensor) -> torch.Tensor:
+    """Positions that sort each row by ``major``, then ``minor``, equal
+    pairs in order of position: ``jnp.lexsort((minor, major))`` as two
+    stable sorts, the minor key first."""
+    order = torch.sort(minor, dim=1, stable=True).indices
+    by_major = torch.sort(torch.gather(major, 1, order), dim=1, stable=True).indices
+    return torch.gather(order, 1, by_major)
+
+
+def _mutual_counts(cat_i: torch.Tensor, table: torch.Tensor) -> torch.Tensor:
+    """``mn[a, c]``: how many entries of candidate ``cat_i[a, c]``'s row of
+    ``table`` are among row ``a``'s own candidates, -1 for a -1 candidate
+    (``count_mutual_neighbors``, src/hnsw_algo.c:460-475). Each entry is
+    looked up by a binary search of the row's sorted candidate list, so the
+    work is ``[A, C * R0]``, not JAX's fused ``[A, C, R0, C]`` compare."""
+    a, c = cat_i.shape
+    cand_rows = table[cat_i.clamp(min=0).long()].reshape(a, -1)
+    srt = torch.sort(cat_i, dim=1).values
+    pos = torch.searchsorted(srt, cand_rows).clamp(max=c - 1)
+    member = (torch.gather(srt, 1, pos) == cand_rows) & (cand_rows >= 0)
+    mn = member.reshape(a, c, -1).sum(dim=2)
+    return torch.where(cat_i >= 0, mn, -1)
+
+
+def _mn_ru_select(cat_d, cat_i, table, m_max: int):
+    """The MN-RU prune of rows of candidates (``hnsw.py:1684-1699``): drop
+    repeated ids (the closest copy stays), then keep the first ``m_max`` by
+    distance ascending, mutual-neighbour count in ``table`` descending. A
+    count depends on the candidate's id and the row's set of ids alone, so
+    it is taken after the repeats are dropped."""
+    sd, si = _dedup_ids(cat_d, cat_i)
+    order = _lexsort(-_mutual_counts(si, table), sd)[:, :m_max]
+    return torch.gather(sd, 1, order), torch.gather(si, 1, order)
+
+
+def _prune_rows(neighbors0, dists0, append_i, append_d, aff, m_max: int,
+                mn_tiebreak: bool = False) -> None:
+    """Merge the appended reverse edges into the distinct rows ``aff`` and
+    keep ``m_max`` of each, in place, in chunks (``_prune_rows_impl``,
+    ``hnsw.py:1646-1703``): the closest, or with ``mn_tiebreak`` the MN-RU
+    rule (src/hnsw_algo.c:593-646), where equal distances keep the
+    candidate sharing more neighbours with the row's candidate list. Every
+    chunk counts those neighbours in the table as it was before the first
+    chunk wrote, as JAX's one functional update does."""
+    table = neighbors0.clone() if mn_tiebreak else None
+    step = _PRUNE_ROWS if mn_tiebreak else _SWEEP_ROWS
+    for s in range(0, aff.shape[0], step):
+        rows = aff[s : s + step]
+        cat_i = torch.cat([neighbors0[rows], append_i[rows]], dim=1)
+        cat_d = torch.cat([dists0[rows], append_d[rows]], dim=1)
+        if mn_tiebreak:
+            new_d, new_i = _mn_ru_select(cat_d, cat_i, table, m_max)
+        else:
+            new_d, new_i = sorted_topk_unique(cat_d, cat_i, m_max)
+        neighbors0[rows] = new_i
+        dists0[rows] = torch.where(new_i >= 0, new_d, _INF)
 
 
 def _upper_select(vectors, members, pool, m: int, metric: Metric):
@@ -406,15 +530,17 @@ class HnswParams:
 class HnswIndex:
     """HNSW approximate nearest-neighbour index on ``device``.
 
-    ``insert(ids, vectors)`` into an empty index builds the graph in bulk;
-    ``search(queries, k, ef_search)`` with ``ef_search`` defaulting to
-    ``2 * k`` (``src/hnsw_vtab.c:586-619``). Knobs of this path, as in the
-    JAX package: ``expand``, ``wave_size``, ``route_entries``,
-    ``build_precision``, ``search_quant`` ("bf16" or "int8" beam
-    guidance), ``beam_patience``, ``beam_max_iters``, ``beam_dedup``,
+    The reference's vtab surface (``src/hnsw_vtab.c``): ``insert(ids,
+    vectors)`` (a bulk build into an empty index, insert waves otherwise),
+    ``delete(ids)``, and ``search(queries, k, ef_search)`` with
+    ``ef_search`` defaulting to ``2 * k`` (``:586-619``). Knobs, as in the
+    JAX package: ``expand``, ``wave_size``, ``mn_ru``, ``insert_mode``
+    ("exact" or "beam"), ``route_entries``, ``build_precision``,
+    ``search_bf16``, ``search_quant`` ("bf16" or "int8" beam guidance),
+    ``beam_patience``, ``beam_max_iters``, ``beam_dedup``,
     ``search_degree``, ``beam_topm``, ``beam_whole``, ``beam_pick_xfer``,
-    ``pack_budget_bytes``, ``exact_small_n``. ``device`` is the card unless
-    ``device="cpu"``.
+    ``pack_budget_bytes``, ``exact_small_n``; ``seed_rng(seed)`` resets the
+    level sampling. ``device`` is the card unless ``device="cpu"``.
     """
 
     def __init__(
@@ -428,6 +554,7 @@ class HnswIndex:
         seed: int = 42,
         expand: int = 4,
         wave_size: int = 1024,
+        mn_ru: bool = True,
         device: str | torch.device = "cuda",
     ):
         if m < 2:
@@ -441,6 +568,9 @@ class HnswIndex:
         self.ef_construction = int(ef_construction)
         self.expand = int(expand)
         self.wave_size = int(wave_size)
+        # MN-RU tiebreak in the prunes of insert waves (arXiv:2407.07871);
+        # a bulk build prunes by distance alone
+        self.mn_ru = bool(mn_ru)
         self._rng = np.random.default_rng(seed)  # level sampling
         self.level_mult = 1.0 / np.log(m)
 
@@ -459,10 +589,21 @@ class HnswIndex:
             device=self.device,
         )
         self._hi_count = 0
+        # promotions of insert waves, (slots, levels), wired into the upper
+        # levels by _flush_hi_wiring
+        self._hi_pending: list[tuple[np.ndarray, np.ndarray]] = []
         self.entry_point = -1  # slot, not external id
         self.max_level = -1
         self.route_entries = 8  # beam seeds from the exact router
-        self.build_precision = "default"  # the bulk kNN sweep's flat_topk
+        # the flat_topk precision of the bulk kNN sweep and of exact waves
+        self.build_precision = "default"
+        # a wave's candidates: "exact", one flat_topk over the pre-wave live
+        # rows; "beam", an f32 level-0 beam at ef_construction
+        self.insert_mode = "exact"
+        # route with flat_topk and guide the beam by the search_quant shadow
+        # (True), or route and search in f32 (False, _search_slots). True on
+        # every device; the JAX package defaults to it on a TPU only
+        self.search_bf16 = True
         # beam guidance: "bf16" rows, or "int8" rows with one scale per row
         # (a quarter of the f32 bytes); the exact rescore stays f32
         self.search_quant = "bf16"
@@ -512,6 +653,11 @@ class HnswIndex:
 
     def __len__(self) -> int:
         return len(self.store)
+
+    def seed_rng(self, seed: int) -> None:
+        """Reset the level-sampling generator (the reference's
+        ``hnsw_seed_rng``, src/hnsw_algo.c:222-224)."""
+        self._rng = np.random.default_rng(seed)
 
     # ── capacity and levels ──
 
@@ -572,14 +718,12 @@ class HnswIndex:
                 q, self.store.vectors[:hw], k, metric=self.metric,
                 corpus_valid=self.store.valid[:hw], precision="highest",
             )
-        pool = self._routing_pool()
-        if pool is None:
-            raise NotImplementedError(
-                "search of a graph without promoted nodes (greedy descent"
-                " from the entry point) is not ported yet (see ROADMAP.md,"
-                " queue 1)"
-            )
-        return self._search_topk_chunked(q, k, ef)
+        if self.search_bf16 and self._routing_pool() is not None:
+            return self._search_topk_chunked(q, k, ef)
+        beam_d, beam_i = self._search_slots_chunked(q, ef)
+        ok = (beam_i >= 0) & self.store.valid[beam_i.clamp(min=0).long()]
+        return sorted_topk_unique(torch.where(ok, beam_d, _INF),
+                                  torch.where(ok, beam_i, -1), k)
 
     def search(self, queries, k: int = 10, ef_search: int | None = None):
         """Batched KNN. Returns ``(ids int64 [B, k], dists f32 [B, k])``
@@ -690,6 +834,43 @@ class HnswIndex:
         return (torch.cat([p[0] for p in parts])[:b],
                 torch.cat([p[1] for p in parts])[:b])
 
+    def _search_slots_chunked(self, q: torch.Tensor, ef: int):
+        """``_search_slots`` over query chunks of at most ``2**28 /
+        capacity`` (256 to 4,096) queries, which bound the beam's gathers
+        (``hnsw.py:914-931``; every query's beam is its own, so the chunks
+        need no padding)."""
+        chunk = int(max(256, min(4096, (1 << 28) // max(self.store.capacity, 1))))
+        parts = [self._search_slots(q[s : s + chunk], ef)
+                 for s in range(0, q.shape[0], chunk)]
+        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
+
+    def _search_slots(self, q: torch.Tensor, ef: int):
+        """Routing and a level-0 beam without the fused query path
+        (``hnsw.py:933-972``), for the searches ``search_device`` sends here:
+        the entry point seeds the beam while no node is promoted, else the
+        pool routes by exact f32 distances (``search_bf16`` is False then).
+        With ``search_bf16`` the beam runs over the bf16 rows and its rows
+        are rescored in f32; without, it runs over the f32 rows. Returns
+        slot-space beams ``(dists, slots)``, ascending."""
+        pool = self._routing_pool()
+        if pool is None:
+            entries = torch.full((q.shape[0], 1), self.entry_point,
+                                 dtype=torch.int32, device=self.device)
+        else:
+            entries = _route_entries(q, self.store.vectors, pool, self.metric,
+                                     min(self.route_entries, ef))
+        if not self.search_bf16:
+            return _beam_search_level0(q, entries, self.store.vectors,
+                                       self.neighbors0, self.metric, ef,
+                                       self.expand)
+        _, beam_i = _beam_search_level0(q, entries, self._vecs16(),
+                                        self.neighbors0, self.metric, ef,
+                                        self.expand)
+        d = gathered_distances(q, self.store.vectors[beam_i.clamp(min=0).long()],
+                               self.metric)
+        d, order = torch.sort(torch.where(beam_i >= 0, d, _INF), dim=1, stable=True)
+        return d, torch.gather(beam_i, 1, order)
+
     def _vecs16(self) -> torch.Tensor:
         if self._v16 is None:
             self._v16 = self.store.vectors.bfloat16()
@@ -768,20 +949,28 @@ class HnswIndex:
     # ── insert ──
 
     def insert(self, ids, vectors) -> None:
-        """Insert into an empty index of at least ``4 * wave_size`` rows:
-        builds the level-0 graph as the exact kNN graph (one chunked
-        ``flat_topk`` sweep of the corpus against itself), symmetrised and
-        pruned, and wires the upper levels exactly."""
+        """Batched insert (``hnsw.py:1070-1093``). Into an empty index, a
+        batch of at least ``4 * wave_size`` rows is built in bulk: the
+        level-0 graph is the exact kNN graph (one chunked ``flat_topk``
+        sweep of the corpus against itself), symmetrised and pruned, and the
+        upper levels are wired exactly. Any other insert runs in waves of
+        ``wave_size`` rows (``_insert_wave``). An ``insert_mode`` outside
+        ``INSERT_MODES`` raises ``ValueError`` before anything changes; an id
+        already stored or repeated raises it as its bulk batch or wave is
+        registered, the waves before it staying inserted, as in JAX."""
+        if self.insert_mode not in INSERT_MODES:
+            raise ValueError(f"insert_mode must be one of {INSERT_MODES}, got"
+                             f" {self.insert_mode!r}")
         ids = np.asarray(ids, np.int64).reshape(-1)
-        if len(self) != 0 or len(ids) < 4 * self.wave_size:
-            raise NotImplementedError(
-                "only the bulk build is ported (an insert of at least"
-                f" 4 * wave_size = {4 * self.wave_size} rows into an empty"
-                " index); insert waves are not ported yet (see ROADMAP.md,"
-                " queue 1)"
-            )
         self._invalidate_search_caches()
-        self._bulk_build(ids, vectors)
+        vecs = torch.as_tensor(vectors, dtype=torch.float32)
+        vecs = vecs.reshape(len(ids), self.dim).to(self.device)
+        if len(self) == 0 and len(ids) >= 4 * self.wave_size:
+            self._bulk_build(ids, vecs)
+            return
+        for s in range(0, len(ids), self.wave_size):
+            self._insert_wave(ids[s : s + self.wave_size],
+                              vecs[s : s + self.wave_size])
 
     def _bulk_build(self, ids: np.ndarray, vectors) -> None:
         n = len(ids)
@@ -807,13 +996,17 @@ class HnswIndex:
 
         # exact kNN rows: the corpus against itself, +1 for the self-match
         corpus = self.store.vectors[: self.store.high_watermark]
+        # an index emptied by deletes keeps its dead rows below the batch:
+        # masked, unlike JAX's sweep (hnsw.py:1170), which wires them in
+        valid = self.store.valid[: self.store.high_watermark]
         base = int(slots[0])  # bulk slots are contiguous
         chunks_i, chunks_d = [], []
         for s in range(0, n, _SWEEP_ROWS):
             e = min(s + _SWEEP_ROWS, n)
             dd, ii = flat_topk(
                 corpus[base + s : base + e], corpus, self.m0 + 1,
-                metric=self.metric, precision=self.build_precision,
+                metric=self.metric, corpus_valid=valid,
+                precision=self.build_precision,
             )
             ci, cd = _drop_self_matches(dd, ii, base + s, self.m0)
             chunks_i.append(ci)
@@ -883,3 +1076,212 @@ class HnswIndex:
                     torch.as_tensor(s_list[s0 : s0 + echunk], device=self.device),
                     lv - 1, self.m, self.metric,
                 )
+
+    def _insert_wave(self, ids: np.ndarray, vecs: torch.Tensor) -> None:
+        """One insertion wave (``hnsw.py:1227-1301``): slots, levels and the
+        promotion queue on the host, the level-0 wiring in
+        ``_wire_wave``, then the entry point: the highest level wins
+        (src/hnsw_algo.c:660-663). Promoted nodes join the routing pool at
+        once and the upper levels at the next ``_flush_hi_wiring``. Room is
+        reserved for the wave padded to a power of two of at least 64 rows,
+        as the JAX package pads it, so both keep the same capacity."""
+        w = len(ids)
+        first = self.entry_point < 0
+        bucket = 1 << int(np.ceil(np.log2(max(w, 64))))
+        pool = None  # the beam's pre-wave routing pool: the entry point while none
+        if self.insert_mode == "beam":
+            pool = None if first else self._routing_pool()
+            if pool is None:
+                p = np.full(64, -1, np.int32)
+                if not first:
+                    p[0] = self.entry_point
+                pool = torch.as_tensor(p, device=self.device)
+
+        slots = self.store.register(ids, reserve_extra=bucket - w)
+        self._sync_capacity()
+        levels = self._sample_levels(w)
+        self.levels[slots] = levels
+        promoted = np.nonzero(levels >= 1)[0]
+        if len(promoted):
+            hi_rows = np.arange(self._hi_count, self._hi_count + len(promoted),
+                                dtype=np.int32)
+            self._hi_count += len(promoted)
+            self._hi_index_np[slots[promoted]] = hi_rows
+            self._hi_pending.append((slots[promoted].astype(np.int32),
+                                     levels[promoted].astype(np.int32)))
+            self._pool_dirty = True
+
+        self._wire_wave(vecs, int(slots[0]), pool, min(self.m0, max(bucket - 1, 1)))
+        top = int(np.argmax(levels))
+        if first or int(levels[top]) > self.max_level:
+            self.max_level = int(levels[top])
+            self.entry_point = int(slots[top])
+
+    def _wire_wave(self, qv: torch.Tensor, base: int,
+                   pool: torch.Tensor | None, kk: int) -> None:
+        """The level-0 work of a wave, in place (``_insert_wave_fused``,
+        ``hnsw.py:1717-1836``), for rows ``qv`` at the slots from ``base``
+        on: write the rows; candidates from the pre-wave graph (live rows
+        only, so never a wave row or a deleted one), merged with each row's
+        ``kk`` closest wave rows; the closest ``2M`` wired forward; the
+        reverse edges appended to their targets, up to ``2M`` each; those
+        targets pruned back to ``2M`` (MN-RU with ``mn_ru``)."""
+        w, m0 = qv.shape[0], self.m0
+        st = self.store
+        hw = st.high_watermark
+        st.vectors[base : base + w] = qv
+        slots = torch.arange(base, base + w, dtype=torch.int32, device=self.device)
+        if self.insert_mode == "exact":
+            # the live rows up to the new high watermark: never an empty
+            # corpus, and the wave's own rows are still invalid
+            cand_d, cand_i = flat_topk(
+                qv, st.vectors[:hw], m0, metric=self.metric,
+                corpus_valid=st.valid[:hw], precision=self.build_precision,
+            )
+        else:  # "beam"
+            ef = max(self.ef_construction, m0 + 1)
+            entries = _route_entries(qv, st.vectors, pool, self.metric,
+                                     min(self.route_entries, ef))
+            cand_d, cand_i = _beam_search_level0(
+                qv, entries, st.vectors, self.neighbors0, self.metric, ef,
+                self.expand)
+            # routed through, never selected: deleted rows
+            ok = (cand_i >= 0) & st.valid[cand_i.clamp(min=0).long()]
+            cand_d = torch.where(ok, cand_d, _INF)
+            cand_i = torch.where(ok, cand_i, -1)
+        st.valid[base : base + w] = True
+
+        # the wave's rows among themselves (the sequential reference links
+        # them by inserting one at a time)
+        intra = pairwise_distances(qv, qv, self.metric)
+        not_self = ~torch.eye(w, dtype=torch.bool, device=self.device)
+        id_, ii = masked_topk(intra, kk, mask=not_self, ids=slots[None, :])
+        cand_d, cand_i = merge_topk(cand_d, cand_i, id_, ii)
+        sel_d, sel_i = sorted_topk_unique(cand_d, cand_i, m0)
+        sel_d = torch.where(sel_i >= 0, sel_d, _INF)
+        self.neighbors0[base : base + w] = sel_i
+        self.dists0[base : base + w] = sel_d
+
+        tgt = sel_i.reshape(-1)
+        append_i, append_d = _grouped_bounded_append(
+            tgt, slots.repeat_interleave(m0), sel_d.reshape(-1),
+            self.neighbors0.shape[0], m0)
+        # each target once: JAX prunes duplicates to the same row
+        aff = torch.unique(tgt[tgt >= 0]).long()
+        _prune_rows(self.neighbors0, self.dists0, append_i, append_d, aff, m0,
+                    mn_tiebreak=self.mn_ru)
+
+    def _flush_hi_wiring(self) -> None:
+        """Wire every queued promotion into the upper levels in one exact
+        pass (``hnsw.py:1303-1328``); nodes deleted since they were queued
+        are dropped. Deferral changes nothing: upper levels are wired
+        exactly over each level's whole population. Called before an
+        export (``index.convert.hnsw_index_to_numpy``)."""
+        if not self._hi_pending:
+            return
+        slots = np.concatenate([sl for sl, _ in self._hi_pending])
+        levels = np.concatenate([lv for _, lv in self._hi_pending])
+        self._hi_pending = []
+        alive = self.levels[slots] >= 1
+        slots, levels = slots[alive], levels[alive]
+        if len(slots) == 0:
+            return
+        if self._hi_count > self.hi_neighbors.shape[0]:
+            self._grow_hi(2 * self._hi_count)
+        self.hi_index[torch.as_tensor(slots, dtype=torch.long, device=self.device)] = (
+            torch.as_tensor(self._hi_index_np[slots], device=self.device))
+        self._wire_upper_levels(slots, levels, np.arange(len(slots)))
+
+    # ── delete ──
+
+    def delete(self, ids) -> None:
+        """Soft delete with repair (``hnsw.py:1403-1481``; the reference's
+        ``hnsw_delete``, src/hnsw_algo.c:706-802), in waves of at most
+        ``wave_size`` ids. Every live row that points at a deleted slot
+        drops those edges and refills, closest first, from the union of the
+        deleted nodes' former neighbourhoods (``flat_topk`` at "highest"),
+        so no live edge points at a tombstone; the deleted rows are cleared,
+        upper-level edges to them scrubbed, their queued promotions dropped,
+        and the entry point rescanned if it died. An unknown id raises
+        ``KeyError`` before its wave changes anything (earlier waves stay
+        deleted, as in JAX)."""
+        self._invalidate_search_caches()
+        ids = np.asarray(ids, np.int64).reshape(-1)
+        if len(ids) == 0:
+            return
+        if len(ids) > self.wave_size:
+            for s in range(0, len(ids), self.wave_size):
+                self.delete(ids[s : s + self.wave_size])
+            return
+        slots = self.store.unregister(ids)
+        self.levels[slots] = -1
+        self._hi_index_np[slots] = -1
+        if self._hi_pending:
+            self._hi_pending = [(sl[~np.isin(sl, slots)], lv[~np.isin(sl, slots)])
+                                for sl, lv in self._hi_pending]
+        self._pool_dirty = True
+
+        # mark; the former neighbourhoods and the rows pointing at a
+        # deleted slot come back to the host
+        dev = self.device
+        slots_t = torch.as_tensor(slots, dtype=torch.long, device=dev)
+        self.store.valid[slots_t] = False
+        dmask = torch.zeros(self.neighbors0.shape[0], dtype=torch.bool, device=dev)
+        dmask[slots_t] = True
+        nb = self.neighbors0
+        refs_dead = ((nb >= 0) & dmask[nb.clamp(min=0).long()]).any(dim=1)
+        aff = np.nonzero(refs_dead.cpu().numpy())[0]
+        aff = aff[~np.isin(aff, slots)]
+        pool = np.unique(nb[slots_t].cpu().numpy())
+        pool = pool[(pool >= 0) & ~np.isin(pool, slots)]
+        if len(aff) and len(pool):
+            # JAX pads the pool to a power of two of at least 64, which sets k
+            kk = min(self.m0 + 1, len(_pow2_pad(pool)))
+            pool_t = torch.as_tensor(pool, dtype=torch.long, device=dev)
+            pv = self.store.vectors[pool_t]
+            for s in range(0, len(aff), _REPAIR_ROWS):
+                self._repair_rows(
+                    torch.as_tensor(aff[s : s + _REPAIR_ROWS], dtype=torch.long,
+                                    device=dev), pool_t, pv, dmask, kk)
+
+        # clear the deleted rows, scrub the upper levels
+        self.neighbors0[slots_t] = -1
+        self.dists0[slots_t] = _INF
+        hn = self.hi_neighbors
+        self.hi_neighbors = torch.where(
+            (hn >= 0) & dmask[hn.clamp(min=0).long()], -1, hn)
+        self.hi_index[slots_t] = -1
+        if self.entry_point in set(slots.tolist()):
+            self._rescan_entry_point()
+
+    def _repair_rows(self, aff: torch.Tensor, pool: torch.Tensor,
+                     pv: torch.Tensor, dmask: torch.Tensor, kk: int) -> None:
+        """Rows ``aff`` drop their edges to deleted slots and merge in their
+        ``kk`` closest rows of the repair pool (``_delete_repair_rows``,
+        ``hnsw.py:1860-1896``), in place."""
+        rows_i = self.neighbors0[aff]
+        rows_d = self.dists0[aff]
+        dead = (rows_i >= 0) & dmask[rows_i.clamp(min=0).long()]
+        rows_i = torch.where(dead, -1, rows_i)
+        rows_d = torch.where(dead, _INF, rows_d)
+        cd, ci = flat_topk(self.store.vectors[aff], pv, kk, metric=self.metric,
+                           precision="highest")
+        cand = torch.where(ci >= 0, pool[ci.clamp(min=0).long()], -1)
+        self_m = cand == aff[:, None]
+        cd = torch.where(self_m, _INF, cd)
+        cand = torch.where(self_m, -1, cand).to(torch.int32)
+        rd, ri = merge_topk(rows_d, rows_i, cd, cand)
+        self.neighbors0[aff] = ri
+        self.dists0[aff] = rd
+
+    def _rescan_entry_point(self) -> None:
+        """The live node of the highest level, first by slot
+        (src/hnsw_algo.c:790-802); none when the index is empty."""
+        live = np.nonzero(self.store.valid.cpu().numpy())[0]
+        if len(live) == 0:
+            self.entry_point = -1
+            self.max_level = -1
+            return
+        best = int(np.argmax(self.levels[live]))
+        self.entry_point = int(live[best])
+        self.max_level = int(self.levels[live[best]])

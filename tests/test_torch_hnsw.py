@@ -235,8 +235,7 @@ def test_search_degree_cached_and_matches_jax(carried):
     caches them (``tests/test_hnsw.py:595-636``): a second search reuses the
     slices, a new knob or ``pack_neighbors()`` replaces them; results match
     JAX's packed path with the same ``search_degree`` on the carried graph
-    within ``_assert_same_results``' tolerances. (JAX's non-bulk insert,
-    ``:634-636``, is not ported.)"""
+    within ``_assert_same_results``' tolerances."""
     j, state, q, truth = carried
     k, ef = 10, 32
     t = hnsw_index_from_numpy(state, device="cpu")
@@ -267,6 +266,10 @@ def test_search_degree_cached_and_matches_jax(carried):
     t.pack_neighbors()
     t.search(q, k=k, ef_search=ef)
     assert t._sd_cache is not cache2 and t._sd_cache[2] is t._maybe_packed()
+    cache3 = t._sd_cache
+    t.insert(np.arange(3000, 3004), state["vectors"][:4])  # a wave: new tables
+    t.search(q, k=k, ef_search=ef)
+    assert t._sd_cache is not cache3 and t._sd_cache[1] is t.neighbors0
     t.search_degree = 16  # >= 2M: the whole rows, no slices
     assert t._search_tables(t._maybe_packed(), None)[0] is t.neighbors0
 
@@ -506,18 +509,35 @@ def test_small_index_search_is_exact_flat():
 
 
 def test_hnsw_edge_cases_and_errors():
+    """An empty index, a query of the wrong width; inserts of fewer than
+    4 * wave_size rows into an empty index and of any size into a
+    non-empty one run as waves, and search as JAX's does (exact flat at
+    this size); bad knobs raise."""
     t = HnswIndex(16, "l2", m=4, wave_size=64, device="cpu")
     i, d = t.search(np.zeros((3, 16), np.float32), k=4)
     assert i.shape == (3, 4) and (i == -1).all() and np.isinf(d).all()
     with pytest.raises(ValueError, match="query dim 15 != index dim 16"):
         t.search(np.zeros(15), k=1)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.insert(np.arange(100), np.zeros((100, 16), np.float32))  # < 4 waves
-    x = np.random.default_rng(14).standard_normal((300, 16)).astype(np.float32)
-    t.insert(np.arange(300), x)
-    assert len(t) == 300
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        t.insert(np.arange(300, 600), x)  # into a non-empty index
+    x = np.random.default_rng(14).standard_normal((600, 16)).astype(np.float32)
+    q = x[::37] + 0.1
+    small = HnswIndex(16, "l2", m=4, wave_size=64, device="cpu")
+    small_j = JaxHnswIndex(16, "l2", m=4, wave_size=64)
+    for idx in (small, small_j):
+        idx.insert(np.arange(100), x[:100])  # < 4 waves: two waves
+    assert len(small) == 100 and not small._packed_auto
+    tid, tdist = small.search(q, k=5)
+    jid, jdist = small_j.search(q, k=5)
+    np.testing.assert_array_equal(tid, np.asarray(jid))
+    np.testing.assert_allclose(tdist, np.asarray(jdist), rtol=1e-5, atol=1e-5)
+    j = JaxHnswIndex(16, "l2", m=4, wave_size=64)
+    for idx in (t, j):
+        idx.insert(np.arange(300), x[:300])  # bulk
+        idx.insert(np.arange(300, 600), x[300:])  # waves into a non-empty index
+    assert len(t) == 600
+    tid, tdist = t.search(q, k=5)
+    jid, jdist = j.search(q, k=5)
+    np.testing.assert_array_equal(tid, np.asarray(jid))
+    np.testing.assert_allclose(tdist, np.asarray(jdist), rtol=1e-5, atol=1e-5)
     with pytest.raises(ValueError, match="m must be >= 2"):
         HnswIndex(16, m=1)
     with pytest.raises(ValueError, match="invalid metric"):
@@ -576,9 +596,10 @@ def test_hnsw_modules_import_no_jax():
 
 
 def test_hnsw_cpu_path_never_builds_or_launches(tmp_path):
-    """Build and search (packed and row paths, top-m, search_degree, the
-    whole-beam path) and the row gather on CPU tensors run the plain
-    versions: no launch is counted and nvcc is never called."""
+    """Build, an insert wave, a delete with repair, the upper-level flush,
+    search (packed and row paths, top-m, search_degree, the whole-beam
+    path) and the row gather on CPU tensors run the plain versions: no
+    launch is counted and nvcc is never called."""
     fake = tmp_path / "bin"
     fake.mkdir()
     marker = tmp_path / "nvcc_called"
@@ -594,6 +615,9 @@ def test_hnsw_cpu_path_never_builds_or_launches(tmp_path):
         x = np.random.default_rng(0).standard_normal((600, 8)).astype(np.float32)
         idx = HnswIndex(8, "cosine", m=4, wave_size=128, device="cpu")
         idx.insert(np.arange(600), x)
+        idx.insert(np.arange(600, 700), x[:100] + 0.5)  # a wave
+        idx.delete(np.arange(0, 50))  # a delete with repair
+        idx._flush_hi_wiring()
         idx.exact_small_n = 0
         idx.search(x[:5], k=3)
         idx.pack_neighbors()
