@@ -137,7 +137,33 @@ Phases, each of which exits non-zero on failure:
    candidate call, bf16; a repair call, ``highest``; an all-masked corpus
    in both modes; ``beam_loop`` on a 2,816-query chunk of the churned
    graph, beam overlap at least 0.99), the two flat calls timed against
-   plain and their library calls; and two waves into an empty index.
+   plain and their library calls; and two waves into an empty index;
+16. the IVF path at ``bench.py``'s north-star shape (``bench.py:583-653``)
+   on its rows: 1M x 768 cosine about 4,096 centres (``bench.py:481-483``),
+   8,192 queries:
+   ``IvfIndex(cluster_size=128, rescore_r=32, seed=42)``, capacity
+   1,004,096; the bulk insert timed (``build_s``, ``nlist``); searches at
+   nprobe 2 and 4 (``northstar_1m_768d_ivf_p{2,4}_qps``), recall@10 on the
+   first 512 queries against exact ``highest`` at least 0.95 and 0.98, every
+   distance within TOL of float64, and one tensor-core ``flat_topk`` and one
+   ``beam_dots`` launch per search; the search's device time split by part
+   under ``torch.profiler`` once (nprobe 4); ``bench.py``'s churn (1,024
+   warm inserts, 1,024 timed: ``ivf_incr_insert_vec_per_s``,
+   ``ivf_pending_after_churn``, ``ivf_pending_qps`` at nprobe 4 on 2,048
+   queries, one timed ``rebuild``: ``ivf_rebuild_s``); 4,096 new rows by
+   ``load_rows`` into the pending region, each found first at distance
+   within TOL of 0; 1,000 ids deleted and none returned; an int8-block
+   index from the bf16 index's centroids (``rebuild(centroids=...)``),
+   recall@10 at nprobe 4 within 0.01 of bf16's, ``beam_dots_int8``
+   launched; ``save_ivf`` / ``load_ivf(device="cuda")`` of the bf16 index
+   and the same for a flat index (phase 4's rows) and phase 15's HNSW
+   index: identical ids, distances within TOL; then the probe call
+   (8,192 x 9,375 centroids, k=4, bf16 operands) against its plain version
+   and its library call, and ``gather_block_dots`` at ``[128, 768]`` blocks,
+   E = 4, bf16 and int8, against plain, each timed beside its bound; last,
+   the same build on phase 5's rows (1,000 centres), recall@10 at nprobe 2,
+   4 and 16 reported with no floor (a query's neighbours there spread over
+   about 9 clusters).
 
 Each kernel's record carries its bound: the larger of the operations over
 the card's peak rate for their type and the bytes (each input read once,
@@ -405,6 +431,367 @@ def clustered_on_device(gen, n, d, n_clusters, n_queries):
     q = q + 0.05 * torch.randn(n_queries, d, generator=gen, device=dev)
     q /= torch.linalg.norm(q, dim=1, keepdim=True)
     return x, q
+
+
+def split_by_part(mod, parts, step) -> tuple[float, float, dict[str, float]]:
+    """The host wall ms of one call of ``step`` (no profiler), the device's
+    busy ms in one under ``torch.profiler`` as it runs, and each part's
+    device ms in one with ``mod``'s functions ``parts`` fenced by
+    synchronizes (kernels inside the part's range), "other" for the
+    rest."""
+    act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
+    kind = torch.autograd.DeviceType.CUDA
+
+    def union_ms(spans) -> float:
+        busy, last = 0.0, float("-inf")
+        for s, t in sorted(spans):
+            busy += max(0.0, t - max(s, last))
+            last = max(last, t)
+        return busy / 1e3
+
+    def kernels(prof):
+        return [(e.time_range.start, e.time_range.end) for e in prof.events()
+                if e.device_type == kind and not e.name.startswith("part:")]
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    step()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+    with torch.profiler.profile(activities=act) as prof:
+        step()
+        torch.cuda.synchronize()
+    busy = union_ms(kernels(prof))
+    saved = {name: getattr(mod, name) for name in parts}
+
+    def fenced(name, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            with torch.profiler.record_function(f"part:{name}"):
+                out = fn(*a, **kw)
+                torch.cuda.synchronize()
+            return out
+        return call
+
+    try:
+        for name in parts:
+            setattr(mod, name, fenced(name, saved[name]))
+        with torch.profiler.profile(activities=act) as prof:
+            step()
+            torch.cuda.synchronize()
+    finally:
+        for name, fn in saved.items():
+            setattr(mod, name, fn)
+    spans = kernels(prof)
+    split = {name: 0.0 for name in parts}
+    for e in prof.events():
+        if e.device_type != kind and e.name.startswith("part:"):
+            lo, hi = e.time_range.start, e.time_range.end
+            split[e.name[5:]] += union_ms([(s, t) for s, t in spans
+                                          if s >= lo and t <= hi])
+    split["other"] = union_ms(spans) - sum(split.values())
+    return busy, wall, split
+
+
+def ivf_phase(x4: np.ndarray, q4: np.ndarray, hnsw, bf16_library, k: int) -> dict:
+    """Phase 16: the IVF path at ``bench.py``'s north-star shape, its
+    checkpoints, and its kernels at their IVF call shapes. ``x4`` and ``q4``
+    are phase 4's rows and queries, ``hnsw`` phase 15's index. Returns the
+    numbers of the kernels' record."""
+    import shutil
+
+    from muninn_tpu_torch import FlatIndex, IvfIndex
+    from muninn_tpu_torch.index import ivf as ivf_mod
+    from muninn_tpu_torch.io import checkpoint as ck
+    from muninn_tpu_torch.ops import _build
+    from muninn_tpu_torch.ops.beam import gather_block_dots_cuda, gather_block_dots_plain
+    from muninn_tpu_torch.ops.distance import unit_rows as unit_t
+    from muninn_tpu_torch.ops.flat_topk import flat_topk, flat_topk_cuda, flat_topk_plain
+
+    card = card_line()
+    n, d, nq, s = 1_000_000, 768, 8192, 128
+    # bench.py's north-star rows: 4,096 centres (bench.py:481-483), the
+    # recipe JAX's IVF recall was recorded on
+    gen = torch.Generator(device="cuda").manual_seed(3)
+    x16, q16 = clustered_on_device(gen, n, d, 4096, nq)
+    _, truth = flat_topk(q16[:512], x16, k, metric="cosine")
+    truth = truth.cpu().numpy()
+
+    def exact_err(dd, slots, q, rows_of) -> tuple[float, int]:
+        """Largest |returned distance - float64 cosine distance| of the
+        returned rows, ascending and (inf, -1) exactly where a query has
+        fewer than k results, and the count of such queries (their probed
+        clusters held fewer than k live rows)."""
+        got = slots >= 0
+        check(bool((torch.isfinite(dd) == got).all()),
+              "IVF: inf distances and -1 slots disagree")
+        check(bool((dd[:, 1:] >= dd[:, :-1]).all()), "IVF: dists not ascending")
+        err = 0.0
+        for lo in range(0, q.shape[0], 2048):
+            rows = rows_of(slots[lo:lo + 2048].clamp(min=0).long()).double()
+            want = 1.0 - (rows * unit_t(q[lo:lo + 2048]).double()[:, None, :]).sum(-1) \
+                / rows.norm(dim=-1)
+            diff = (dd[lo:lo + 2048].double() - want).abs()
+            err = max(err, float(torch.where(got[lo:lo + 2048], diff, 0.0).max()))
+        check(err <= TOL, f"IVF distance error {err}")
+        return err, int((~got).any(dim=1).sum())
+
+    def rows_of(idx):
+        return lambda sl: idx.store.vectors[sl]
+
+    # 1. build and search (bench.py:588-620)
+    ivf = IvfIndex(d, "cosine", cluster_size=s, rescore_r=32, capacity=n + 4096,
+                   seed=42, device="cuda")
+    _build.reset_launches()
+    t0 = time.perf_counter()
+    ivf.insert(np.arange(n), x16)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check(sum(_build.LAUNCHES.values()) == 0,
+          f"the IVF build launched {dict(_build.LAUNCHES)}")
+    check(ivf.centroids is not None and ivf._pending_count == 0, "IVF: not built")
+    sparse = int((ivf._fill < k).sum())
+    print(f"{card}; IVF 1M x {d} cosine, cluster_size={s}: build {build_s:.3f} s"
+          f" ({n / build_s:.0f} vec/s), nlist {ivf.nlist}, blocks"
+          f" {tuple(ivf.blocks.shape)} {ivf.blocks.dtype}; {sparse} clusters"
+          f" with fewer than {k} members (fewest {int(ivf._fill.min())})",
+          flush=True)
+    out: dict = {"build_s": build_s, "nlist": ivf.nlist,
+                 "clusters_below_k": sparse}
+    err = 0.0
+    for p in (2, 4):
+        _build.reset_launches()
+        dd, sl = ivf.search_device(q16, k, nprobe=p)
+        torch.cuda.synchronize()
+        launches = dict(_build.LAUNCHES)
+        check(launches["flat_topk_mma"] == 1 and launches["flat_topk"] == 1
+              and launches["beam_dots"] == 1 and sum(launches.values()) == 3,
+              f"an IVF search at nprobe={p} launched {launches}")
+        e, short = exact_err(dd, sl, q16, rows_of(ivf))
+        err = max(err, e)
+        rec = recall(sl[:512].cpu().numpy(), truth)
+        floor = 0.98 if p == 4 else 0.95
+        check(rec >= floor, f"IVF recall@{k} at nprobe={p}: {rec} < {floor}")
+        ms = device_ms(lambda: ivf.search_device(q16, k, nprobe=p), reps=5)
+        out[f"northstar_1m_768d_ivf_p{p}_qps"] = nq / ms * 1e3
+        out[f"recall_p{p}"] = rec
+        out[f"search_ms_p{p}"] = ms
+        out[f"short_p{p}"] = short
+        out["launches"] = launches
+        print(f"  nprobe={p}: recall@{k} {rec} (first 512 queries vs exact);"
+              f" {short} of {nq} queries with fewer than {k} results;"
+              f" {nq} queries in {ms:.3f} ms"
+              f" (northstar_1m_768d_ivf_p{p}_qps {nq / ms * 1e3:.1f});"
+              f" launches {launches}", flush=True)
+    busy, wall, split = split_by_part(
+        ivf_mod, ("flat_topk", "gather_block_dots", "packed_distances",
+                  "smallest_k", "gathered_distances", "sorted_topk_unique"),
+        lambda: ivf.search_device(q16, k, nprobe=4))
+    out["split"] = {"busy_ms": busy, "wall_ms": wall, **split}
+    print(f"  nprobe=4 under the profiler: device busy {busy:.3f} ms, against a"
+          f" {wall:.3f} ms host wall without it (idle {1 - busy / wall:.1%}); device ms,"
+          " parts fenced: " + ", ".join(f"{kk} {v:.3f}" for kk, v in split.items()),
+          flush=True)
+    cent16 = ivf.centroids.clone()
+
+    # 2. churn (bench.py:622-653), then the pending region and deletes
+    churn_ids = np.arange(n, n + 2048)
+    ivf.insert(churn_ids[:1024], x16[:1024])  # warm
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    ivf.insert(churn_ids[1024:], x16[1024:2048])
+    torch.cuda.synchronize()
+    out["ivf_incr_insert_vec_per_s"] = 1024 / (time.perf_counter() - t0)
+    out["ivf_pending_after_churn"] = ivf._pending_count
+    out["ivf_pending_qps"] = 2048 / device_ms(
+        lambda: ivf.search_device(q16[:2048], k, nprobe=4), reps=5) * 1e3
+    t0 = time.perf_counter()
+    ivf.rebuild()
+    torch.cuda.synchronize()
+    out["ivf_rebuild_s"] = time.perf_counter() - t0
+    check(ivf._pending_count == 0, "IVF: rows left pending by a rebuild")
+    fresh = unit_t(torch.randn(4096, d, generator=gen, device="cuda"))
+    fresh_ids = np.arange(2_000_000, 2_004_096)
+    ivf.load_rows(fresh_ids, fresh)
+    check(ivf._pending_count == 4096, f"pending {ivf._pending_count} after load_rows")
+    _build.reset_launches()
+    fd, fsl = ivf.search_device(fresh, k, nprobe=4)
+    fids = ivf.store.ids_of(fsl.cpu().numpy())
+    check(np.array_equal(fids[:, 0], fresh_ids), "a pending row is not its own first hit")
+    check(float(fd[:, 0].abs().max()) <= TOL, "a pending row's self-distance")
+    err = max(err, exact_err(fd, fsl, fresh, rows_of(ivf))[0])
+    dd, sl = ivf.search_device(q16, k, nprobe=4)
+    dead = np.unique(ivf.store.ids_of(sl[:, 0].cpu().numpy()))[:1000]
+    check(len(dead) == 1000, "IVF: fewer than 1,000 distinct first hits")
+    ivf.delete(dead)
+    dd, sl = ivf.search_device(q16, k, nprobe=4)
+    check(not np.isin(ivf.store.ids_of(sl.cpu().numpy()), dead).any(),
+          "IVF: a deleted id came back")
+    err = max(err, exact_err(dd, sl, q16, rows_of(ivf))[0])
+    print(f"  churn: ivf_incr_insert_vec_per_s {out['ivf_incr_insert_vec_per_s']:.1f},"
+          f" ivf_pending_after_churn {out['ivf_pending_after_churn']},"
+          f" ivf_pending_qps {out['ivf_pending_qps']:.1f} (2,048 queries, nprobe=4),"
+          f" ivf_rebuild_s {out['ivf_rebuild_s']:.3f}; 4,096 pending rows each"
+          " found first; 1,000 deleted, none returned; max |d| error"
+          f" {err:.3g}", flush=True)
+
+    # 3. int8 blocks from the bf16 index's centroids
+    ivf8 = IvfIndex(d, "cosine", cluster_size=s, rescore_r=32, capacity=n + 4096,
+                    seed=42, quant="int8", device="cuda")
+    ivf8.load_rows(np.arange(n), x16)
+    del x16
+    t0 = time.perf_counter()
+    ivf8.rebuild(centroids=cent16)
+    torch.cuda.synchronize()
+    out["int8_rebuild_s"] = time.perf_counter() - t0
+    _build.reset_launches()
+    dd8, sl8 = ivf8.search_device(q16, k, nprobe=4)
+    torch.cuda.synchronize()
+    launches8 = dict(_build.LAUNCHES)
+    check(launches8["beam_dots_int8"] == 1 and launches8["beam_dots"] == 0
+          and launches8["flat_topk_mma"] == 1, f"an int8-block search launched {launches8}")
+    err = max(err, exact_err(dd8, sl8, q16, rows_of(ivf8))[0])
+    rec8 = recall(sl8[:512].cpu().numpy(), truth)
+    check(abs(rec8 - out["recall_p4"]) <= 0.01,
+          f"int8 blocks' recall {rec8} against bf16's {out['recall_p4']}")
+    ms8 = device_ms(lambda: ivf8.search_device(q16, k, nprobe=4), reps=5)
+    out.update(recall_int8_p4=rec8, int8_p4_qps=nq / ms8 * 1e3, launches_int8=launches8)
+    print(f"  int8 blocks (rebuild from the bf16 centroids {out['int8_rebuild_s']:.3f} s):"
+          f" recall@{k} {rec8} at nprobe=4; {ms8:.3f} ms ({nq / ms8 * 1e3:.1f} QPS);"
+          f" launches {launches8}", flush=True)
+
+    # 4. checkpoints on the card
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    flat = FlatIndex(x4.shape[1], "cosine", device="cuda")
+    flat.insert(np.arange(len(x4)), x4)
+    t0 = time.perf_counter()
+    for kind, idx, search in (
+            ("ivf", ivf, lambda i: i.search(q16, k=k, nprobe=4)),
+            ("flat", flat, lambda i: i.search(q4[:2048], k=k)),
+            ("hnsw", hnsw, lambda i: i.search(q4[:2048], k=k, ef_search=32))):
+        getattr(ck, f"save_{kind}")(idx, root / kind)
+        back = getattr(ck, f"load_{kind}")(root / kind, device="cuda")
+        check(back.store.vectors.is_cuda, f"load_{kind} left the store off the card")
+        if kind == "hnsw":
+            for name in ("search_quant", "beam_topm", "beam_whole", "search_degree",
+                         "expand", "route_entries", "beam_patience",
+                         "beam_max_iters", "exact_small_n", "search_bf16"):
+                setattr(back, name, getattr(idx, name))
+            for h in (idx, back):
+                h.pack_neighbors()
+        (wi, wd), (gi, gd) = search(idx), search(back)
+        check(np.array_equal(gi, wi), f"{kind} checkpoint: ids differ after load")
+        np.testing.assert_allclose(gd, wd, rtol=TOL, atol=TOL)
+        del back
+    out["checkpoint_s"] = time.perf_counter() - t0
+    shutil.rmtree(root, ignore_errors=True)
+    del flat
+    print(f"  checkpoints: save/load on the card of the IVF (bf16, after churn),"
+          f" flat and HNSW indexes, identical ids, in {out['checkpoint_s']:.1f} s",
+          flush=True)
+
+    # 5. the kernels at the IVF call shapes
+    p = 4
+    cent = ivf.centroids
+    kd, ki = flat_topk_cuda(q16, cent, p, metric="cosine", precision="default")
+    torch.cuda.synchronize()
+    pd, pi = flat_topk_plain(q16, cent, p, metric="cosine", precision="default")
+    all_c = torch.ones(cent.shape[0], dtype=torch.bool, device="cuda")
+    out["probe_err"] = compare(kd, ki, pd, pi, q16, cent, None, "cosine",
+                               ref=dist64_bf16)
+    out["probe_ms"] = device_ms(lambda: flat_topk(
+        q16, cent, p, metric="cosine", precision="default"), reps=20)
+    out["probe_plain_ms"] = device_ms(lambda: flat_topk_plain(
+        q16, cent, p, metric="cosine", precision="default"))
+    out["probe_library_ms"] = device_ms(lambda: bf16_library(q16, cent, all_c, p), reps=20)
+    ncl = cent.shape[0]
+    out["probe_bound_ms"], out["probe_bound_by"] = bound(
+        2.0 * nq * ncl * d, "bf16", 4.0 * (ncl + nq) * d + ncl + 8.0 * nq * p)
+
+    def block_bound(blocks, picks):
+        """Ops: a multiply-add for the dot and one for the squared norm of
+        every row of every pick; bytes: each probed block once, the queries
+        and ids, and the two [B, E*S] f32 outputs (and, per pick, the same
+        with a block read for every pick)."""
+        uniq = int(torch.unique(picks).numel())
+        blk = blocks.shape[1] * blocks.shape[2] * blocks.element_size()
+        io = q16.numel() * 4 + picks.numel() * 4 + 2 * picks.numel() * blocks.shape[1] * 4
+        ops = 4.0 * picks.numel() * blocks.shape[1] * blocks.shape[2]
+        return bound(ops, "fp32", uniq * blk + io), bound(ops, "fp32", picks.numel() * blk + io)[0]
+
+    for tag, idx in (("", ivf), ("_int8", ivf8)):
+        blocks = idx.blocks
+        picks = flat_topk(q16, idx.centroids, p, metric="cosine",
+                          precision="default")[1].clamp(min=0)
+        kdot, kcn = gather_block_dots_cuda(q16, picks, blocks)
+        torch.cuda.synchronize()
+        scale = (idx.block_scales[picks.long()].reshape(nq, -1)
+                 if idx.block_scales is not None else None)
+        berr = 0.0
+        for lo in range(0, nq, 1024):
+            pdot, pcn = gather_block_dots_plain(q16[lo:lo + 1024], picks[lo:lo + 1024],
+                                                blocks)
+            a, b_, c_, e_ = kdot[lo:lo + 1024], kcn[lo:lo + 1024], pdot, pcn
+            if scale is not None:
+                sc = scale[lo:lo + 1024]
+                a, b_, c_, e_ = a * sc, b_ * sc * sc, c_ * sc, e_ * sc * sc
+            torch.testing.assert_close(a, c_, rtol=TOL, atol=TOL)
+            torch.testing.assert_close(b_, e_, rtol=TOL, atol=TOL)
+            berr = max(berr, float((a - c_).abs().max()), float((b_ - e_).abs().max()))
+        out[f"beam_err{tag}"] = berr
+        out[f"beam_ms{tag}"] = device_ms(
+            lambda: gather_block_dots_cuda(q16, picks, blocks), reps=20)
+
+        def plain_all():
+            for lo in range(0, nq, 2048):
+                gather_block_dots_plain(q16[lo:lo + 2048], picks[lo:lo + 2048], blocks)
+
+        out[f"beam_plain_ms{tag}"] = device_ms(plain_all, reps=3)
+        (out[f"beam_bound_ms{tag}"], out[f"beam_bound_by{tag}"]), \
+            out[f"beam_bound_ms_per_pick{tag}"] = block_bound(blocks, picks)
+    print(f"  probe call [{nq}, {d}] x [{ncl}, {d}] bf16 operands, k={p}: kernel"
+          f" {out['probe_ms']:.4f} ms, plain {out['probe_plain_ms']:.4f} ms, library"
+          f" {out['probe_library_ms']:.4f} ms; bound {out['probe_bound_ms']:.4f} ms"
+          f" ({out['probe_bound_by']}); max |d| error {out['probe_err']:.3g}",
+          flush=True)
+    for tag, name in (("", "bf16"), ("_int8", "int8")):
+        print(f"  gather_block_dots [{nq}, {p}] x [{s}, {d}] {name}: kernel"
+              f" {out['beam_ms' + tag]:.4f} ms, plain {out['beam_plain_ms' + tag]:.4f}"
+              f" ms (2,048 queries a call); bound {out['beam_bound_ms' + tag]:.4f} ms"
+              f" ({out['beam_bound_by' + tag]}; each probed block read once),"
+              f" {out['beam_bound_ms_per_pick' + tag]:.4f} ms with a block read per"
+              f" pick; max error {out['beam_err' + tag]:.3g}", flush=True)
+    out["err"] = err
+    del ivf, ivf8
+    torch.cuda.empty_cache()
+
+    # 6. the data regime: phase 5's rows (1,000 centres, some 1,000 rows
+    # each, so a query's top-10 spreads over about 9 clusters), no floor
+    gen = torch.Generator(device="cuda").manual_seed(11)
+    x5, q5 = clustered_on_device(gen, n, d, 1000, nq)
+    _, truth5 = flat_topk(q5[:512], x5, k, metric="cosine")
+    ivf5 = IvfIndex(d, "cosine", cluster_size=s, rescore_r=32, capacity=n + 4096,
+                    seed=42, device="cuda")
+    ivf5.insert(np.arange(n), x5)
+    del x5
+    out["recall_1000_centres"] = {
+        p5: recall(ivf5.search_device(q5[:512], k, nprobe=p5)[1].cpu().numpy(),
+                   truth5.cpu().numpy()) for p5 in (2, 4, 16)}
+    print(f"  phase 5's rows (1,000 centres): recall@{k} by nprobe"
+          f" {out['recall_1000_centres']} (no floor)", flush=True)
+    del ivf5, q5
+    print(json.dumps({"ivf_northstar_1m_768d": {
+        key: out[key] for key in (
+            "build_s", "nlist", "clusters_below_k", "recall_p2", "recall_p4",
+            "short_p2", "short_p4",
+            "northstar_1m_768d_ivf_p2_qps", "northstar_1m_768d_ivf_p4_qps",
+            "ivf_incr_insert_vec_per_s", "ivf_pending_after_churn",
+            "ivf_pending_qps", "ivf_rebuild_s", "recall_int8_p4", "int8_p4_qps",
+            "recall_1000_centres")}}), flush=True)
+    del q16
+    torch.cuda.empty_cache()
+    return out
 
 
 def main() -> int:
@@ -1539,6 +1926,9 @@ def main() -> int:
     check(bool((fids >= 0).all()), "search after waves into an empty index")
     del empty15, nbf
 
+    # 16. the IVF path at bench.py's north-star shape, and checkpoints
+    ivf16 = ivf_phase(x, qq, hnsw, bf16_library, k)
+
     print(json.dumps({"kernels": [{
         "name": "flat_topk",
         "route": "cuda",
@@ -1583,6 +1973,13 @@ def main() -> int:
         "bound_ms_wave": wave_bound,
         "bound_by_wave": wave_bound_by,
         "library_ms_wave": wave_library_ms,
+        "launches_ivf_search": ivf16["launches"]["flat_topk_mma"],
+        "max_abs_err_ivf_probe": ivf16["probe_err"],
+        "ms_ivf_probe": ivf16["probe_ms"],
+        "plain_ms_ivf_probe": ivf16["probe_plain_ms"],
+        "bound_ms_ivf_probe": ivf16["probe_bound_ms"],
+        "bound_by_ivf_probe": ivf16["probe_bound_by"],
+        "library_ms_ivf_probe": ivf16["probe_library_ms"],
     }, {
         "name": "flat_topk_int8",
         "route": "cuda",
@@ -1616,6 +2013,20 @@ def main() -> int:
         "bound_ms_int8": beam8_bound_ms,
         "bound_share": beam_bound_ms / beam_ms,
         "bound_share_int8": beam8_bound_ms / beam8_ms,
+        "launches_ivf_search": ivf16["launches"]["beam_dots"],
+        "max_abs_err_ivf": ivf16["beam_err"],
+        "ms_ivf": ivf16["beam_ms"],
+        "plain_ms_ivf": ivf16["beam_plain_ms"],
+        "bound_ms_ivf": ivf16["beam_bound_ms"],
+        "bound_by_ivf": ivf16["beam_bound_by"],
+        "bound_ms_ivf_per_pick": ivf16["beam_bound_ms_per_pick"],
+        "launches_ivf_int8_search": ivf16["launches_int8"]["beam_dots_int8"],
+        "max_abs_err_ivf_int8": ivf16["beam_err_int8"],
+        "ms_ivf_int8": ivf16["beam_ms_int8"],
+        "plain_ms_ivf_int8": ivf16["beam_plain_ms_int8"],
+        "bound_ms_ivf_int8": ivf16["beam_bound_ms_int8"],
+        "bound_by_ivf_int8": ivf16["beam_bound_by_int8"],
+        "bound_ms_ivf_per_pick_int8": ivf16["beam_bound_ms_per_pick_int8"],
     }, {
         "name": "beam_topm",
         "route": "cuda",

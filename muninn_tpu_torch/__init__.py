@@ -18,6 +18,12 @@ reference. So far it carries:
   ``csrc/beam_dots.cu``; with bf16 guidance also
   the top-m beam (``beam_topm``, the top-m mode of ``csrc/beam_dots.cu``)
   and the whole beam in one kernel (``beam_whole``, ``csrc/beam_loop.cu``);
+- IVF: ``IvfIndex`` build (k-means, balanced cluster blocks of bf16 or
+  int8 rows), insert, delete and search (probe selection through
+  ``csrc/flat_topk_mma.cu``, block scoring through ``csrc/beam_dots.cu``,
+  exact f32 rescore, an exactly scanned pending region);
+- checkpoints: ``io.checkpoint`` saves and loads every index kind above in
+  the JAX package's format, in both directions, with ``DeltaLog``;
 - the row gather ``ops.gather.gather_rows`` (``csrc/gather_rows.cu``),
   which no production path calls, as in the JAX package.
 
@@ -27,11 +33,12 @@ kernel; on the CPU it runs its plain PyTorch version. The package imports
 ``torch`` and numpy, never ``jax`` and never ``muninn_tpu``.
 """
 
-__version__ = "0.5.0"
+__version__ = "0.6.0"
 
 from muninn_tpu_torch.ops.distance import Metric, parse_metric  # noqa: F401
 from muninn_tpu_torch.index.flat import FlatIndex, QuantizedFlatIndex  # noqa: F401
 from muninn_tpu_torch.index.hnsw import HnswIndex  # noqa: F401
+from muninn_tpu_torch.index.ivf import IvfIndex  # noqa: F401
 
 __all__ = ["Metric", "parse_metric", "FlatIndex", "QuantizedFlatIndex",
-           "HnswIndex", "__version__"]
+           "HnswIndex", "IvfIndex", "__version__"]

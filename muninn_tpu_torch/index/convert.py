@@ -27,6 +27,19 @@ free slots), ``levels [cap]`` int32 (-1 on free slots), ``neighbors0
 ``hi_neighbors [cap_hi, 8, m]`` int32. Scalars: ``dim``, ``metric``, ``m``,
 ``ef_construction``, ``entry_point``, ``max_level``, ``hi_count``,
 ``high_watermark``, ``count``.
+
+IVF: exactly the fields ``muninn_tpu.io.checkpoint.save_ivf`` writes. Arrays
+over the store's capacity ``cap``: ``vectors [cap, d]`` f32, or for a bf16
+store ``vectors_u16 [cap, d]`` uint16 (the bf16 bit patterns: numpy has no
+bf16), ``valid [cap]`` bool, ``ids [cap]`` int64 (-1 on free slots), and
+``pending [P]`` int64 (slots in no cluster). A built index also carries
+``centroids [ncl, d]`` f32, ``member_slots [ncl_pad, S]`` int32 (-1 on free
+slots), ``fill [ncl]`` int64 and its blocks: ``blocks_u16 [ncl_pad, S, d]``
+uint16 (bf16 bits), or ``blocks_i8 [ncl_pad, S, d]`` int8 with
+``block_scales [ncl_pad, S]`` f32. Scalars: ``dim``, ``metric``,
+``cluster_size``, ``nprobe``, ``rescore_r``, ``slack``, ``kmeans_iters``,
+``assign_rounds``, ``train_sample``, ``seed``, ``quant``, ``built``,
+``high_watermark``, ``count``.
 """
 
 from __future__ import annotations
@@ -36,6 +49,7 @@ import torch
 
 from muninn_tpu_torch.index.flat import FlatIndex, QuantizedFlatIndex
 from muninn_tpu_torch.index.hnsw import HnswIndex
+from muninn_tpu_torch.index.ivf import IvfIndex
 
 _HNSW_ARRAYS = {
     "vectors": np.float32, "valid": bool, "ids": np.int64,
@@ -49,6 +63,29 @@ _HNSW_SCALARS = ("dim", "m", "ef_construction", "entry_point", "max_level",
 def _check_valid(valid: np.ndarray, ids: np.ndarray) -> None:
     if not np.array_equal(valid, ids >= 0):
         raise ValueError("valid must be True exactly on the slots with an id")
+
+
+def _restore_store(store, vectors: torch.Tensor, valid: np.ndarray,
+                   ids: np.ndarray, hw: int, count: int) -> None:
+    """Install whole-capacity arrays and rebuild the slot map from ``ids``,
+    after checking that they agree with ``hw`` and ``count``."""
+    cap = vectors.shape[0]
+    if valid.shape != (cap,) or ids.shape != (cap,):
+        raise ValueError(
+            f"valid {valid.shape} and ids {ids.shape} do not fit {cap} rows")
+    _check_valid(valid, ids)
+    live = np.flatnonzero(ids >= 0)
+    if len(live) != count or len(np.unique(ids[live])) != len(live):
+        raise ValueError("ids must hold count distinct ids")
+    if not 0 <= hw <= cap or (len(live) and live[-1] >= hw):
+        raise ValueError("high_watermark must lie above every live slot")
+    dev = store.device
+    store.vectors = vectors.to(dev)
+    store.valid = torch.tensor(valid, device=dev)
+    store._id_of = ids.copy()
+    store._slot_of = dict(zip(ids[live].tolist(), live.tolist()))
+    store._count = count
+    store._high = hw
 
 
 def flat_index_from_numpy(state: dict,
@@ -147,12 +184,6 @@ def hnsw_index_from_numpy(state: dict,
     hn = a["hi_neighbors"]
     if hn.ndim != 3 or hn.shape[2] != m:
         raise ValueError(f"hi_neighbors has shape {hn.shape}, want (*, *, {m})")
-    live = np.flatnonzero(a["ids"] >= 0)
-    _check_valid(a["valid"], a["ids"])
-    if len(live) != sc["count"] or len(np.unique(a["ids"][live])) != len(live):
-        raise ValueError("ids must hold count distinct ids")
-    if len(live) and live[-1] >= sc["high_watermark"]:
-        raise ValueError("a live slot lies at or above high_watermark")
     # an out-of-range gather is a device-side assert on CUDA: refuse here
     if not ((a["neighbors0"] >= -1) & (a["neighbors0"] < cap)).all():
         raise ValueError("neighbors0 holds a slot outside the store")
@@ -165,13 +196,8 @@ def hnsw_index_from_numpy(state: dict,
                       ef_construction=sc["ef_construction"], capacity=cap,
                       device=device)
     dev = index.device
-    st = index.store
-    st.vectors = torch.tensor(a["vectors"], device=dev)
-    st.valid = torch.tensor(a["valid"], device=dev)
-    st._id_of = a["ids"].copy()
-    st._slot_of = dict(zip(a["ids"][live].tolist(), live.tolist()))
-    st._count = sc["count"]
-    st._high = sc["high_watermark"]
+    _restore_store(index.store, torch.tensor(a["vectors"]), a["valid"],
+                   a["ids"], sc["high_watermark"], sc["count"])
     index.levels = a["levels"].copy()
     index.neighbors0 = torch.tensor(a["neighbors0"], device=dev)
     index.dists0 = torch.tensor(a["dists0"], device=dev)
@@ -209,3 +235,127 @@ def hnsw_index_to_numpy(index: HnswIndex) -> dict:
         "high_watermark": st.high_watermark,
         "count": len(st),
     }
+
+
+def _bf16_bits(t: torch.Tensor) -> np.ndarray:
+    """A bf16 tensor's bit patterns as uint16 numpy."""
+    return t.cpu().view(torch.int16).numpy().view(np.uint16).copy()
+
+
+def _from_bf16_bits(a: np.ndarray, dev: torch.device) -> torch.Tensor:
+    return torch.from_numpy(
+        np.ascontiguousarray(a, np.uint16).view(np.int16)
+    ).view(torch.bfloat16).to(dev)
+
+
+def ivf_index_from_numpy(state: dict,
+                         device: str | torch.device = "cuda") -> IvfIndex:
+    """Build an ``IvfIndex`` on ``device`` from ``state`` (see the module
+    docstring). Its capacity is that of ``state``; every array is checked
+    against the others and the scalars, so that no slot points outside the
+    store."""
+    bf16_store = "vectors_u16" in state
+    vectors = np.asarray(state["vectors_u16" if bf16_store else "vectors"])
+    dim, s = int(state["dim"]), int(state["cluster_size"])
+    quant = str(state.get("quant", "bf16"))
+    if vectors.ndim != 2 or vectors.shape[1] != dim:
+        raise ValueError(f"vectors have shape {vectors.shape}, want (*, {dim})")
+    cap = vectors.shape[0]
+    index = IvfIndex(
+        dim, str(state["metric"]), cluster_size=s,
+        nprobe=int(state["nprobe"]), rescore_r=int(state["rescore_r"]),
+        slack=float(state["slack"]), kmeans_iters=int(state["kmeans_iters"]),
+        assign_rounds=int(state.get("assign_rounds", 2)),
+        train_sample=int(state["train_sample"]), seed=int(state["seed"]),
+        capacity=cap, quant=quant,
+        store_dtype=torch.bfloat16 if bf16_store else torch.float32,
+        device=device,
+    )
+    dev = index.device
+    _restore_store(
+        index.store,
+        (_from_bf16_bits(vectors, dev) if bf16_store
+         else torch.tensor(np.asarray(vectors, np.float32))),
+        np.asarray(state["valid"], bool), np.asarray(state["ids"], np.int64),
+        int(state["high_watermark"]), int(state["count"]))
+    pending = np.asarray(state["pending"], np.int64)
+    if pending.ndim != 1 or not ((pending >= 0) & (pending < cap)).all():
+        raise ValueError("pending holds a slot outside the store")
+    if bool(state["built"]):
+        cent = np.asarray(state["centroids"], np.float32)
+        ms = np.asarray(state["member_slots"], np.int32)
+        fill = np.asarray(state["fill"], np.int64)
+        blocks = np.asarray(state["blocks_i8" if quant == "int8"
+                                  else "blocks_u16"])
+        ncl, ncl_pad = cent.shape[0], ms.shape[0]
+        if (cent.shape != (ncl, dim) or ncl < 1 or ms.shape != (ncl_pad, s)
+                or ncl_pad < ncl or blocks.shape != (ncl_pad, s, dim)
+                or fill.shape != (ncl,)):
+            raise ValueError(
+                f"centroids {cent.shape}, member_slots {ms.shape}, blocks"
+                f" {blocks.shape} and fill {fill.shape} do not fit"
+                f" cluster_size {s} and dim {dim}")
+        if not ((ms >= -1) & (ms < cap)).all():
+            raise ValueError("member_slots holds a slot outside the store")
+        if not np.array_equal(fill, (ms[:ncl] >= 0).sum(axis=1)) or (
+                ms[ncl:] >= 0).any():
+            raise ValueError("fill disagrees with member_slots")
+        index.centroids = torch.tensor(cent, device=dev)
+        index.member_slots = torch.tensor(ms, device=dev)
+        index._fill = fill.copy()
+        if quant == "int8":
+            scales = np.asarray(state["block_scales"], np.float32)
+            if scales.shape != (ncl_pad, s):
+                raise ValueError(
+                    f"block_scales have shape {scales.shape}, want"
+                    f" {(ncl_pad, s)}")
+            index.blocks = torch.tensor(np.asarray(blocks, np.int8), device=dev)
+            index.block_scales = torch.tensor(scales, device=dev)
+        else:
+            index.blocks = _from_bf16_bits(blocks, dev)
+    index._pending = [pending.astype(np.int32)] if pending.size else []
+    index._pending_count = int(pending.size)
+    return index
+
+
+def ivf_index_to_numpy(index: IvfIndex) -> dict:
+    """The state of ``index`` as ``save_ivf`` writes it (see the module
+    docstring)."""
+    st = index.store
+    built = index.centroids is not None
+    state = (
+        {"vectors_u16": _bf16_bits(st.vectors)}
+        if st.vectors.dtype == torch.bfloat16
+        else {"vectors": st.vectors.cpu().numpy().copy()}
+    )
+    state.update({
+        "valid": st.valid.cpu().numpy().copy(),
+        "ids": st._id_of.copy(),
+        "pending": index._pending_slots().astype(np.int64),
+    })
+    if built:
+        state["centroids"] = index.centroids.cpu().numpy().copy()
+        if index.quant == "int8":
+            state["blocks_i8"] = index.blocks.cpu().numpy().copy()
+            state["block_scales"] = index.block_scales.cpu().numpy().copy()
+        else:
+            state["blocks_u16"] = _bf16_bits(index.blocks)
+        state["member_slots"] = index.member_slots.cpu().numpy().copy()
+        state["fill"] = index._fill.copy()
+    state.update({
+        "dim": index.dim,
+        "metric": index.metric.value,
+        "cluster_size": index.cluster_size,
+        "nprobe": index.nprobe,
+        "rescore_r": index.rescore_r,
+        "slack": index.slack,
+        "kmeans_iters": index.kmeans_iters,
+        "assign_rounds": index.assign_rounds,
+        "train_sample": index.train_sample,
+        "seed": index.seed,
+        "quant": index.quant,
+        "built": built,
+        "high_watermark": st.high_watermark,
+        "count": len(st),
+    })
+    return state

@@ -1,9 +1,10 @@
 """Vector store with external-id mapping, the PyTorch port of
 ``muninn_tpu/index/store.py``.
 
-A padded ``[cap, d]`` tensor (``float32``, or ``int8`` with one f32 scale
-per row in ``scales``) and a validity mask on the
-index's device, with the int64 external-id <-> int32 slot map kept on the
+A padded ``[cap, d]`` tensor (``float32``; ``bfloat16``, whose rows are
+written rounded to nearest even and read back with ``.float()``; or
+``int8`` with one f32 scale per row in ``scales``) and a validity mask on
+the index's device, with the int64 external-id <-> int32 slot map kept on the
 host. Appends and deletes update the device tensors in place (slice and
 index assignment); capacity grows by doubling, rounded to
 ``pad_multiple``.
@@ -43,8 +44,9 @@ class VectorStore:
     def __init__(self, dim: int, capacity: int = 1024, pad_multiple: int = 1024,
                  *, device: str | torch.device = "cuda",
                  dtype: torch.dtype = torch.float32):
-        if dtype not in (torch.float32, torch.int8):
-            raise ValueError(f"store dtype must be float32 or int8, got {dtype}")
+        if dtype not in (torch.float32, torch.bfloat16, torch.int8):
+            raise ValueError(
+                f"store dtype must be float32, bfloat16 or int8, got {dtype}")
         self.dim = int(dim)
         self.pad_multiple = int(pad_multiple)
         self.device = resolve_device(device)
@@ -210,4 +212,5 @@ class VectorStore:
         s = self.slot(id_)
         if s is None or not bool(self.valid[s]):
             return None
-        return self.vectors[s].cpu().numpy()
+        row = self.vectors[s]
+        return (row.float() if row.dtype == torch.bfloat16 else row).cpu().numpy()

@@ -78,6 +78,13 @@ def unit_rows(x: torch.Tensor) -> torch.Tensor:
                            min=_EPS_NORM)
 
 
+def normalize_rows(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
+    """Rows (last axis) divided by ``max(|row|, eps)``
+    (``muninn_tpu/ops/distance.py:144-148``)."""
+    return x / torch.clamp(torch.linalg.vector_norm(x, dim=-1, keepdim=True),
+                           min=eps)
+
+
 def quantize_rows_int8(
     v: torch.Tensor, normalize: bool = False
 ) -> tuple[torch.Tensor, torch.Tensor]:

@@ -56,6 +56,27 @@ def smallest_k(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
     return vals[..., :k], pos[..., :k]
 
 
+def smallest_k_select(x: torch.Tensor, k: int) -> tuple[torch.Tensor, torch.Tensor]:
+    """``smallest_k`` of the rows of a 2-D ``x`` by ``torch.topk`` instead
+    of a sort of each whole row, for wide rows: the same values and
+    positions. ``torch.topk`` keeps every entry below the k-th value; a row
+    where it kept some but not all of the entries equal to that value may
+    have kept later positions than the first, and only such rows are
+    sorted whole. Reads one flag back to the host."""
+    if k >= x.shape[-1]:
+        return smallest_k(x, k)
+    vals, pos = torch.topk(x, k, dim=-1, largest=False, sorted=True)
+    order = torch.argsort(pos, dim=-1)  # by position, then stably by value
+    vals, pos = torch.gather(vals, -1, order), torch.gather(pos, -1, order)
+    order = torch.sort(vals, dim=-1, stable=True).indices
+    vals, pos = torch.gather(vals, -1, order), torch.gather(pos, -1, order)
+    kth = vals[:, -1:]
+    cut = (x == kth).sum(dim=-1) != (vals == kth).sum(dim=-1)
+    if bool(cut.any()):
+        vals[cut], pos[cut] = smallest_k(x[cut], k)
+    return vals, pos
+
+
 def _dedup_ids(
     dists: torch.Tensor, ids: torch.Tensor
 ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -93,6 +114,40 @@ def merge_topk(
     d = torch.gather(d, -1, order)
     i = torch.gather(i, -1, order)
     return d[..., :ka], i[..., :ka]
+
+
+def merge_topk_flagged(
+    dists_a: torch.Tensor,
+    ids_a: torch.Tensor,
+    flags_a: torch.Tensor,
+    dists_b: torch.Tensor,
+    ids_b: torch.Tensor,
+    flags_b: torch.Tensor,
+) -> tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """``merge_topk`` with a boolean payload carried through the sort
+    (``muninn_tpu/ops/topk.py:109-145``): the ``ka`` smallest of the two
+    (dist, id, flag) sets, ascending. Of an id present more than once the
+    occurrence with flag True survives, the closest among those (the beam
+    search's rule: an expanded entry never reverts to unexpanded); the
+    others become ``(inf, -1, False)``."""
+    ka = dists_a.shape[-1]
+    d = torch.cat([dists_a, dists_b], dim=-1)
+    i = torch.cat([ids_a, ids_b], dim=-1)
+    f = torch.cat([flags_a, flags_b], dim=-1)
+    # lexsort by (id, ~flag, dist): stable sorts, the minor key first
+    order = torch.sort(d, dim=-1, stable=True).indices
+    for key in ((~f).to(torch.int32), i):
+        order = torch.gather(order, -1, torch.sort(
+            torch.gather(key, -1, order), dim=-1, stable=True).indices)
+    sd, si, sf = (torch.gather(x, -1, order) for x in (d, i, f))
+    prev = torch.cat([torch.full_like(si[..., :1], -2), si[..., :-1]], dim=-1)
+    dup = (si == prev) & (si != INVALID_ID)
+    sd = torch.where(dup, torch.full_like(sd, float("inf")), sd)
+    si = torch.where(dup, torch.full_like(si, INVALID_ID), si)
+    sf = sf & ~dup
+    order = torch.sort(sd, dim=-1, stable=True).indices
+    sd, si, sf = (torch.gather(x, -1, order) for x in (sd, si, sf))
+    return sd[..., :ka], si[..., :ka], sf[..., :ka]
 
 
 def sorted_topk_unique(

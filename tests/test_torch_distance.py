@@ -102,3 +102,17 @@ def test_gathered_distances_match_jax(metric, shape, dtype):
     np.testing.assert_allclose(got, want, rtol=1e-5, atol=1e-5)
     if metric == "l2":
         assert (got >= 0).all()
+
+
+@pytest.mark.parametrize("eps", [1e-12, 0.5])
+def test_normalize_rows_matches_jax(eps):
+    """Gaussian rows, a zero row and rows below ``eps`` in norm; leading
+    axes pass through."""
+    rng = np.random.default_rng(9)
+    x = rng.standard_normal((3, 6, 20)).astype(np.float32)
+    x[0, 0] = 0.0
+    x[1, 2] *= 1e-3
+    want = np.asarray(jd.normalize_rows(jnp.asarray(x), eps))
+    got = td.normalize_rows(torch.from_numpy(x), eps).numpy()
+    np.testing.assert_allclose(got, want, rtol=1e-6, atol=1e-7)
+    np.testing.assert_array_equal(got[0, 0], 0.0)

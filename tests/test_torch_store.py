@@ -88,11 +88,9 @@ def test_store_duplicate_and_unknown_ids_raise_like_jax():
 @pytest.mark.parametrize("dtype", [torch.float32, torch.int8, torch.bfloat16])
 def test_store_dtype_decides_row_scales(dtype):
     """int8 storage always carries one f32 scale per row, grown with the
-    store; f32 storage carries none; any other dtype is refused."""
-    if dtype == torch.bfloat16:
-        with pytest.raises(ValueError, match="float32 or int8"):
-            VectorStore(4, 8, 8, device="cpu", dtype=dtype)
-        return
+    store; f32 and bf16 storage carry none; any other dtype is refused."""
+    with pytest.raises(ValueError, match="float32, bfloat16 or int8"):
+        VectorStore(4, 8, 8, device="cpu", dtype=torch.float16)
     ts = VectorStore(4, 8, 8, device="cpu", dtype=dtype)
     ts.add(np.arange(20), np.ones((20, 4), np.float32))
     assert ts.vectors.dtype == dtype and ts.capacity == 32
@@ -117,3 +115,27 @@ def test_store_restore_rebuilds_from_id_of():
         dst.restore(np.zeros((2, 5), np.float32), np.array([4, 4]))
     with pytest.raises(ValueError, match="shape"):
         dst.restore(np.zeros((2, 4), np.float32), np.array([4, 5]))
+
+
+def test_bf16_store_matches_jax():
+    """A bf16 store rounds rows to nearest even as JAX's does (equal bit
+    patterns through appends, deletes and growth) and reads them back as
+    f32."""
+    import jax.numpy as jnp
+
+    rng = np.random.default_rng(13)
+    ts = VectorStore(6, 8, 8, device="cpu", dtype=torch.bfloat16)
+    js = JaxStore(6, 8, 8, dtype=jnp.bfloat16)
+    for lo, n in ((0, 5), (5, 30)):
+        vecs = rng.standard_normal((n, 6)).astype(np.float32)
+        ids = np.arange(lo, lo + n)
+        np.testing.assert_array_equal(ts.add(ids, vecs), js.add(ids, vecs))
+    ts.remove(np.array([3, 20]))
+    js.remove(np.array([3, 20]))
+    assert ts.capacity == js.capacity and ts.vectors.dtype == torch.bfloat16
+    np.testing.assert_array_equal(ts.vectors.view(torch.int16).numpy(),
+                                  np.asarray(js.vectors).view(np.int16))
+    np.testing.assert_array_equal(ts.valid.numpy(), np.asarray(js.valid))
+    row = ts.get_vector(7)
+    assert row.dtype == np.float32
+    np.testing.assert_array_equal(row, np.asarray(js.vectors[7], np.float32))

@@ -2,6 +2,7 @@
 seeded numpy inputs through both packages. Top-k and merges only move
 values, so results must be equal, not close."""
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -102,3 +103,65 @@ def test_sorted_topk_unique_matches_jax(seed, k):
     np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
     if k > 24:
         assert np.isinf(gd.numpy()[:, 24:]).all() and (gi.numpy()[:, 24:] == -1).all()
+
+
+def _both_flagged(da, ia, fa, db, ib, fb):
+    want = jt.merge_topk_flagged(*(jnp.asarray(x) for x in (da, ia, fa, db, ib, fb)))
+    got = tt.merge_topk_flagged(*(torch.from_numpy(x) for x in (da, ia, fa, db, ib, fb)))
+    for w, g in zip(want, got):
+        np.testing.assert_array_equal(g.numpy(), np.asarray(w))
+    return [g.numpy() for g in got]
+
+
+def test_merge_topk_flagged_true_flag_wins_like_jax():
+    """Of a duplicated id, the flagged occurrence survives even where the
+    unflagged one is closer; flags ride with their entries."""
+    da = np.array([[1.0, 2.0, 4.0]], np.float32)
+    ia = np.array([[7, 3, 5]], np.int32)
+    fa = np.array([[False, False, True]])
+    db = np.array([[2.5, 3.0, 4.0]], np.float32)
+    ib = np.array([[3, 5, 9]], np.int32)   # 3 flagged here only; 5 unflagged
+    fb = np.array([[True, False, False]])
+    d, i, f = _both_flagged(da, ia, fa, db, ib, fb)
+    np.testing.assert_array_equal(i[0], [7, 3, 5])
+    np.testing.assert_array_equal(d[0], [1.0, 2.5, 4.0])
+    np.testing.assert_array_equal(f[0], [False, True, True])
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2, 3])
+def test_merge_topk_flagged_random_matches_jax(seed):
+    """Duplicated ids, integer distances (ties everywhere), -1 slots and
+    random flags: every output equal to JAX's."""
+    rng = np.random.default_rng(seed)
+    b, ka, kb = 4, 9, 12
+    da = np.sort(rng.integers(0, 6, (b, ka)).astype(np.float32), axis=1)
+    db = np.sort(rng.integers(0, 6, (b, kb)).astype(np.float32), axis=1)
+    ia = rng.integers(-1, 10, (b, ka)).astype(np.int32)
+    ib = rng.integers(-1, 10, (b, kb)).astype(np.int32)
+    da[ia < 0] = np.inf
+    db[ib < 0] = np.inf
+    fa, fb = rng.random((b, ka)) < 0.5, rng.random((b, kb)) < 0.5
+    d, i, _ = _both_flagged(da, ia, fa, db, ib, fb)
+    assert d.shape == (b, ka)
+    live = i[i >= 0]
+    assert len(live) == len(set(zip(np.nonzero(i >= 0)[0], live)))
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+def test_smallest_k_select_matches_the_sort_and_jax(seed):
+    """Integer values (ties across the k-th value in most rows), inf
+    entries and rows with fewer than k finite ones: the values and
+    positions of a stable sort, which are ``lax.top_k``'s of the negated
+    rows."""
+    rng = np.random.default_rng(seed)
+    x = rng.integers(0, 12, (64, 300)).astype(np.float32)
+    x[rng.random(x.shape) < 0.2] = np.inf
+    x[5, 3:] = np.inf
+    for k in (1, 7, 40, 300):
+        gv, gp = tt.smallest_k_select(torch.from_numpy(x), k)
+        sv, sp = tt.smallest_k(torch.from_numpy(x), k)
+        np.testing.assert_array_equal(gv.numpy(), sv.numpy())
+        np.testing.assert_array_equal(gp.numpy(), sp.numpy())
+        jv, jp = jax.lax.top_k(-jnp.asarray(x), k)
+        np.testing.assert_array_equal(gp.numpy(), np.asarray(jp))
+        np.testing.assert_array_equal(gv.numpy(), -np.asarray(jv))
