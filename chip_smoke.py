@@ -13,7 +13,8 @@ Phases, each of which exits non-zero on failure:
 2. build the ``flat_topk`` (f32, ``highest``), ``flat_topk_mma`` (the
    tensor-core kernel of the bf16 and int8 modes), ``beam_dots`` (with its
    top-m mode), ``beam_loop`` and ``gather_rows`` kernels from
-   ``muninn_tpu_torch/csrc``, one ``nvcc`` for each, started together; print
+   ``muninn_tpu_torch/csrc``, one ``nvcc`` for each, started together (and
+   beside them, for phase 17, the host graph library with ``g++``); print
    ``ptxas``'s registers and spills, and the tensor-core kernel's shared
    memory at the main paths' plans; count the tensor-core instructions in
    its SASS (``cuobjdump -sass``: HGMMA for bf16, IGMMA for s8, both
@@ -164,6 +165,24 @@ Phases, each of which exits non-zero on failure:
    the same build on phase 5's rows (1,000 centres), recall@10 at nprobe 2,
    4 and 16 reported with no floor (a query's neighbours there spread over
    about 9 clusters).
+17. the graph core at ``graph_scale``'s sizes
+   (``benchmarks/harness/treatments.py:344-441``), mean degree 10: A, 1M
+   nodes and 10M edges (``BASELINE.json``'s configuration), and B, 10M nodes
+   and 100M edges. Uniform src and dst drawn on the card from a seeded
+   ``torch.Generator``, ``Graph.from_device_edges``, both CSR directions
+   timed, then ``pagerank(iterations=20)``, ``connected_components`` and
+   ``bfs(0)`` with ``backend="device"`` (at A also an unweighted
+   ``shortest_path`` to the farthest node reached), each timed end to end
+   with ``graph_scale``'s metric names, the host reads of each fixpoint
+   counted, and the peak device memory read. The edges are downloaded once
+   and the port's host C++ engine runs on them: BFS depths and parents
+   equal, component labels equal after renumbering, at A PageRank within
+   1e-5 relative and the path a shortest one; PageRank sums to 1 within
+   1e-5 at both sizes. At A, ``auto`` must route each operation to the
+   engine measured faster; at 10k nodes x 50k edges (the reference's
+   largest published point) host and device times per operation are
+   printed beside ``auto``'s choice. The phase's JSON line (``{"graph":
+   ...}``) comes before the kernels' record.
 
 Each kernel's record carries its bound: the larger of the operations over
 the card's peak rate for their type and the bytes (each input read once,
@@ -182,6 +201,7 @@ import re
 import statistics
 import subprocess
 import sys
+import threading
 import time
 from pathlib import Path
 
@@ -794,12 +814,215 @@ def ivf_phase(x4: np.ndarray, q4: np.ndarray, hnsw, bf16_library, k: int) -> dic
     return out
 
 
+# phase 17: graph_scale's sizes (benchmarks/harness/treatments.py:344-441),
+# mean degree 10: A is BASELINE.json's 10M-edge configuration, B the
+# treatment's largest row; and the reference's largest published point
+# (10k nodes, 50k edges), where the routing's crossover lies
+GRAPH_DEGREE = 10
+GRAPH_SIZES = (("A", 1_000_000), ("B", 10_000_000))
+GRAPH_ENVELOPE = (10_000, 50_000)
+PR_RTOL = 1e-5  # PageRank, device (f64 sums) against the host's all-double run
+
+
+def device_edges(n: int, e: int, seed: int):
+    """Uniform src and dst on the card from a seeded CUDA generator, as
+    graph_scale draws them with ``jax.random.randint``."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    return tuple(torch.randint(0, n, (e,), generator=gen, device="cuda",
+                               dtype=torch.int32) for _ in range(2))
+
+
+def timed_s(fn):
+    """(result, host seconds) of one call, synchronised before and after."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def graph_route_times(n: int, e: int, seed: int, reps: int = 3) -> dict:
+    """Host engine against device fixpoints per operation on a
+    ``from_edges`` graph on the card (host mirrors present), each CSR
+    built beforehand: the median of ``reps`` timed calls after one warm
+    call, in seconds, and what ``auto`` picks."""
+    from muninn_tpu_torch.graph import Graph
+
+    src, dst = (t.cpu().numpy() for t in device_edges(n, e, seed))
+    g = Graph.from_edges(src, dst)
+    t = int(dst[-1])
+    ops = {
+        "bfs": lambda b: g.bfs(0, backend=b, as_array=True),
+        "components": lambda b: g.connected_components(backend=b,
+                                                       as_array=True),
+        "pagerank": lambda b: g.pagerank(backend=b, as_array=True),
+        "shortest_path": lambda b: g.shortest_path(0, t, weighted=False,
+                                                   backend=b),
+    }
+    out = {}
+    for name, fn in ops.items():
+        times = {}
+        for backend in ("host", "device"):
+            fn(backend)
+            times[backend] = statistics.median(
+                timed_s(lambda: fn(backend))[1] for _ in range(reps))
+        out[name] = {"host_s": times["host"], "device_s": times["device"],
+                     "auto_host": auto_picks_host(name, e)}
+    return out
+
+
+def auto_picks_host(op: str, e: int) -> bool:
+    """Whether ``auto`` sends ``op`` on a graph of ``e`` edges (host
+    mirrors present) to the host engine: the routing's own estimate and
+    ceiling, as ``Graph`` passes them."""
+    from muninn_tpu_torch.graph import routing
+
+    estimate, ceiling = {
+        "bfs": (routing.COST_BFS_EDGE * e, routing.HOST_SECONDS_BFS),
+        "components": (routing.COST_COMPONENTS_EDGE * e,
+                       routing.HOST_SECONDS_COMPONENTS),
+        "pagerank": (routing.COST_PAGERANK_EDGE_ITER * e * 20,
+                     routing.HOST_SECONDS_PAGERANK),
+        "shortest_path": (routing.COST_SSSP_EDGE * e,
+                          routing.HOST_SECONDS_SSSP),
+    }[op]
+    return routing.use_host("auto", estimate, ceiling)
+
+
+def graph_size(n: int, seed: int, host_pagerank: bool) -> dict:
+    """graph_scale at ``n`` nodes on the card: ``from_device_edges``, both
+    CSR directions, PageRank (20 iterations), components and BFS from node
+    0 with ``backend="device"`` (and an unweighted shortest path where
+    ``host_pagerank``), each timed end to end through the public API, held
+    against the host engine on the same edges, downloaded once."""
+    from muninn_tpu_torch import native
+    from muninn_tpu_torch.graph import Graph
+    from muninn_tpu_torch.graph import traversal as trv
+
+    e = n * GRAPH_DEGREE
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    src, dst = device_edges(n, e, seed)
+    g = Graph.from_device_edges(src, dst, num_nodes=n)
+    del src, dst  # the graph holds its padded copies
+    _, build_s = timed_s(lambda: (g.csr("forward"), g.csr("reverse")))
+    m = {"nodes": n, "edges": e, "csr_build_s": build_s,
+         "csr_build_medge_per_s": 2 * e / build_s / 1e6}
+    rank, pr_s = timed_s(lambda: g.pagerank(iterations=20, backend="device",
+                                            as_array=True))
+    m.update(pagerank20_s=pr_s, pagerank_medge_iter_per_s=20 * e / pr_s / 1e6,
+             pagerank_sum=float(rank.sum(dtype=np.float64)))
+    trv.reset_host_syncs()
+    labels, cc_s = timed_s(lambda: g.connected_components(backend="device",
+                                                          as_array=True))
+    m.update(components_s=cc_s, n_components=int(labels.max()) + 1,
+             components_host_syncs=trv.HOST_SYNCS["components"])
+    (depth, parent), bfs_s = timed_s(lambda: g.bfs(0, backend="device",
+                                                   as_array=True))
+    m.update(bfs_s=bfs_s, bfs_reached=int((depth < 2**30).sum()),
+             bfs_host_syncs=trv.HOST_SYNCS["bfs"])
+    check(g.device_native, "a device analytic downloaded the host mirrors")
+    check(abs(m["pagerank_sum"] - 1.0) <= 1e-5,
+          f"PageRank sums to {m['pagerank_sum']!r} at {n} nodes")
+
+    # the host engine on the same edges
+    js, jd, _ = g._dev_coo
+    (hs, hd), m["download_s"] = timed_s(
+        lambda: (js[:e].cpu().numpy(), jd[:e].cpu().numpy()))
+    (off, _, hdst, _), m["host_csr_build_s"] = timed_s(
+        lambda: native.csr_build(hs, hd, None, n))
+    (hdepth, hparent), m["host_bfs_s"] = timed_s(
+        lambda: native.graph_bfs(off, hdst, 0, n))
+    check(np.array_equal(depth, hdepth) and np.array_equal(parent, hparent),
+          f"BFS depth or parent differs from the host engine at {n} nodes")
+    hcomp, m["host_components_s"] = timed_s(
+        lambda: native.graph_components(hs, hd, n))
+    check(np.array_equal(labels, np.unique(hcomp, return_inverse=True)[1]),
+          f"component labels differ from the host engine at {n} nodes")
+    if host_pagerank:
+        ones = np.ones(e, np.float32)
+        deg = np.bincount(hs, minlength=n).astype(np.float32)
+        hrank, m["host_pagerank20_s"] = timed_s(
+            lambda: native.graph_pagerank(hs, hd, ones, deg, 0.85, 20, False))
+        err = float(np.max(np.abs(rank - hrank) / hrank))
+        m["pagerank_max_rel_err"] = err
+        check(err <= PR_RTOL, f"PageRank differs from the host engine by"
+              f" {err:.3g} relative at {n} nodes")
+        # an unweighted shortest path to the farthest node BFS reached
+        t = int(np.argmax(np.where(depth < 2**30, depth, -1)))
+        trv.reset_host_syncs()
+        (path, dist), m["shortest_path_s"] = timed_s(
+            lambda: g.shortest_path(0, t, weighted=False, backend="device"))
+        m["shortest_path_host_syncs"] = trv.HOST_SYNCS["sssp"]
+        (hdist, _), m["host_shortest_path_s"] = timed_s(
+            lambda: native.graph_sssp(hs, hd, ones, n, 0))
+        hops = set(zip(hs[np.isin(hs, path)].tolist(),
+                       hd[np.isin(hs, path)].tolist()))
+        check(dist == float(hdist[t]) == float(depth[t]) == len(path) - 1
+              and path[0] == 0 and path[-1] == t
+              and all(h in hops for h in zip(path, path[1:])),
+              f"shortest path 0 -> {t} is not a shortest path at {n} nodes")
+        m["shortest_path_hops"] = len(path) - 1
+    m["peak_mem_bytes"] = torch.cuda.max_memory_allocated() - base
+    del g
+    torch.cuda.empty_cache()
+    return m
+
+
+def graph_phase() -> dict:
+    """Phase 17: the graph core at graph_scale's sizes, and the routing's
+    host-against-device times. Returns what the phase's JSON line prints."""
+    from muninn_tpu_torch import native
+
+    t0 = time.perf_counter()
+    check(native.graph_available(), "the host graph library did not build")
+    out = {"wait_native_s": time.perf_counter() - t0}
+    # every op once at a small size first, so that no size's timings take
+    # the first use of a CUDA kernel (module loading)
+    graph_size(GRAPH_ENVELOPE[0], seed=1, host_pagerank=True)
+    for name, n in GRAPH_SIZES:
+        m = out[name] = graph_size(n, seed=17 + n, host_pagerank=name == "A")
+        print(f"  graph {name}: {n:,} nodes, {m['edges']:,} edges:"
+              f" csr {m['csr_build_s']:.4f} s, pagerank20"
+              f" {m['pagerank20_s']:.4f} s (sum {m['pagerank_sum']:.9f}),"
+              f" components {m['components_s']:.4f} s"
+              f" ({m['n_components']:,}; {m['components_host_syncs']} syncs),"
+              f" bfs {m['bfs_s']:.4f} s ({m['bfs_reached']:,} reached;"
+              f" {m['bfs_host_syncs']} syncs), peak"
+              f" {m['peak_mem_bytes'] / 2**30:.3f} GiB", flush=True)
+    # auto at A: the engine this phase measured faster, for every op
+    a = out["A"]
+    for op, host_s, dev_s in (
+            ("bfs", a["host_bfs_s"], a["bfs_s"]),
+            ("components", a["host_components_s"], a["components_s"]),
+            ("pagerank", a["host_pagerank20_s"], a["pagerank20_s"]),
+            ("shortest_path", a["host_shortest_path_s"],
+             a["shortest_path_s"])):
+        auto_host = auto_picks_host(op, a["edges"])
+        print(f"  graph A {op}: host {host_s:.4f} s, device {dev_s:.4f} s,"
+              f" auto -> {'host' if auto_host else 'device'}")
+        check(auto_host == (host_s < dev_s),
+              f"auto routes {op} at 10M edges to the slower engine")
+    out["envelope"] = graph_route_times(*GRAPH_ENVELOPE, seed=11)
+    for op, r in out["envelope"].items():
+        print(f"  graph {GRAPH_ENVELOPE[0]:,} x {GRAPH_ENVELOPE[1]:,} {op}:"
+              f" host {r['host_s'] * 1e3:.3f} ms, device"
+              f" {r['device_s'] * 1e3:.3f} ms, auto ->"
+              f" {'host' if r['auto_host'] else 'device'}")
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
               file=sys.stderr)
         return 2
     from muninn_tpu_torch import FlatIndex, HnswIndex, QuantizedFlatIndex
+    from muninn_tpu_torch import native
     from muninn_tpu_torch.index import hnsw as hnsw_mod
     from muninn_tpu_torch.index.hnsw import _route
     from muninn_tpu_torch.ops import _build, beam
@@ -854,7 +1077,9 @@ def main() -> int:
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda},"
           f" {torch.cuda.get_device_name(0)}", flush=True)
 
-    # 2. build
+    # 2. build; the graph phase's host library (g++) alongside
+    native_build = threading.Thread(target=native.graph_available)
+    native_build.start()
     t0 = time.perf_counter()
     sources = ["flat_topk", "flat_topk_mma", "beam_dots", "beam_loop",
                "gather_rows"]
@@ -1928,6 +2153,11 @@ def main() -> int:
 
     # 16. the IVF path at bench.py's north-star shape, and checkpoints
     ivf16 = ivf_phase(x, qq, hnsw, bf16_library, k)
+
+    # 17. the graph core at graph_scale's sizes (no hand-written kernel)
+    native_build.join()
+    graph17 = graph_phase()
+    print(json.dumps({"graph": graph17}))
 
     print(json.dumps({"kernels": [{
         "name": "flat_topk",

@@ -25,20 +25,35 @@ reference. So far it carries:
 - checkpoints: ``io.checkpoint`` saves and loads every index kind above in
   the JAX package's format, in both directions, with ``DeltaLog``;
 - the row gather ``ops.gather.gather_rows`` (``csrc/gather_rows.cu``),
-  which no production path calls, as in the JAX package.
+  which no production path calls, as in the JAX package;
+- graph analytics: ``Graph`` (``graph/``) from edge lists or from edges
+  already on the card (``from_device_edges``), its CSR in every direction,
+  BFS, DFS, shortest paths, connected components and PageRank as device
+  fixpoints over ``ops.segments`` (plain torch: the JAX package has no
+  Pallas kernel there) or, where ``graph.routing``'s measured crossovers
+  say the host is faster, on the port's own copy of the native C++ host
+  engine (``native/``, built with g++ at first use into ``build/native/``);
+  ``graph.convert`` carries a graph's state across from either package;
+- ``pairwise_distances`` (``ops.distance``).
 
-Indexes live on the card (``device="cuda"``) unless the caller passes
-``device="cpu"``. On a CUDA device every kernel wrapper launches its
+Indexes and graphs live on the card (``device="cuda"``) unless the caller
+passes ``device="cpu"``. On a CUDA device every kernel wrapper launches its
 kernel; on the CPU it runs its plain PyTorch version. The package imports
 ``torch`` and numpy, never ``jax`` and never ``muninn_tpu``.
 """
 
-__version__ = "0.6.0"
+__version__ = "0.7.0"
 
-from muninn_tpu_torch.ops.distance import Metric, parse_metric  # noqa: F401
+from muninn_tpu_torch.ops.distance import (  # noqa: F401
+    Metric,
+    pairwise_distances,
+    parse_metric,
+)
 from muninn_tpu_torch.index.flat import FlatIndex, QuantizedFlatIndex  # noqa: F401
 from muninn_tpu_torch.index.hnsw import HnswIndex  # noqa: F401
 from muninn_tpu_torch.index.ivf import IvfIndex  # noqa: F401
+from muninn_tpu_torch.graph import Graph  # noqa: F401
 
-__all__ = ["Metric", "parse_metric", "FlatIndex", "QuantizedFlatIndex",
-           "HnswIndex", "IvfIndex", "__version__"]
+__all__ = ["Metric", "parse_metric", "pairwise_distances", "FlatIndex",
+           "QuantizedFlatIndex", "HnswIndex", "IvfIndex", "Graph",
+           "__version__"]

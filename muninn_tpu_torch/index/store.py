@@ -30,9 +30,9 @@ def resolve_device(device: str | torch.device) -> torch.device:
     dev = torch.device(device)
     if dev.type == "cuda" and not torch.cuda.is_available():
         raise RuntimeError(
-            f"device {str(device)!r}: no CUDA device is available. The index"
-            " runs on the card by default; pass device='cpu' to run on the"
-            " CPU"
+            f"device {str(device)!r}: no CUDA device is available. Indexes"
+            " and graphs run on the card by default; pass device='cpu' to"
+            " run on the CPU"
         )
     return dev
 
