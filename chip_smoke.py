@@ -183,6 +183,35 @@ Phases, each of which exits non-zero on failure:
    largest published point) host and device times per operation are
    printed beside ``auto``'s choice. The phase's JSON line (``{"graph":
    ...}``) comes before the kernels' record.
+18. the rest of the graph layer at ``BASELINE.json`` configs[4] ("Leiden
+   community detection + Brandes betweenness on weighted 10M-edge graph"):
+   phase 17's A (1M nodes, 10M uniform edges drawn on the card) with
+   weights uniform in [0.1, 5.0) from the same generator, through
+   ``Graph.from_device_edges``. First, at 10k nodes x 50k edges (the
+   reference's largest published point), host and device times of
+   ``betweenness(sample_sources=64)``, ``closeness()`` and
+   ``leiden(seed=0)`` beside ``auto``'s pick. At A:
+   ``betweenness(weighted=True, sample_sources=64, seed=0,
+   backend="device")`` timed end to end with its host reads, source batch
+   and peak device memory; the same call with 4 sources on the device and,
+   on the edges downloaded once, on the host engine, within rtol 1e-3,
+   atol 1e-3; the device's deduplicated COO and both CSRs array for array
+   against the host's dedupe and counting sort; three
+   ``leiden(seed=0, backend="device")`` runs with identical labels and Q,
+   Q equal to ``modularity(labels)`` within 1e-5, and one host-engine
+   Leiden (on a 100k x 1M graph of the same recipe if the measured cost
+   puts it above 60 s at A) whose Q the device's must reach within 0.05;
+   ``select(g, "3+0+3")`` with its depths equal to the host engine's BFS
+   in each direction; ``auto``'s pick at A the engine measured faster for
+   betweenness and Leiden. Then ``GraphCache.from_edges`` on A's edges with
+   both CSR directions built, 5,000 ``add_edges`` between existing nodes
+   and 5,000 ``remove_edges`` of existing edges applied by
+   ``incremental_rebuild`` (timed against a full ``rebuild()`` plus the CSR
+   build), both patched CSRs equal to a fresh build array for array and a
+   BFS on them equal to the host engine's; ``save``, 1,000 more inserts and
+   ``save`` again (only the tail block rewritten), ``load`` with equal
+   edges. The phase's JSON line (``{"graph_analytics": ...}``) comes before
+   the kernels' record; the phase adds no kernel.
 
 Each kernel's record carries its bound: the larger of the operations over
 the card's peak rate for their type and the bytes (each input read once,
@@ -842,6 +871,17 @@ def timed_s(fn):
     return out, time.perf_counter() - t0
 
 
+def host_device_s(fn, reps: int) -> dict:
+    """Median host seconds of ``reps`` calls of ``fn(backend)`` on each
+    engine, after one warm call each."""
+    times = {}
+    for backend in ("host", "device"):
+        fn(backend)
+        times[backend] = statistics.median(
+            timed_s(lambda: fn(backend))[1] for _ in range(reps))
+    return {"host_s": times["host"], "device_s": times["device"]}
+
+
 def graph_route_times(n: int, e: int, seed: int, reps: int = 3) -> dict:
     """Host engine against device fixpoints per operation on a
     ``from_edges`` graph on the card (host mirrors present), each CSR
@@ -860,16 +900,9 @@ def graph_route_times(n: int, e: int, seed: int, reps: int = 3) -> dict:
         "shortest_path": lambda b: g.shortest_path(0, t, weighted=False,
                                                    backend=b),
     }
-    out = {}
-    for name, fn in ops.items():
-        times = {}
-        for backend in ("host", "device"):
-            fn(backend)
-            times[backend] = statistics.median(
-                timed_s(lambda: fn(backend))[1] for _ in range(reps))
-        out[name] = {"host_s": times["host"], "device_s": times["device"],
-                     "auto_host": auto_picks_host(name, e)}
-    return out
+    return {name: {**host_device_s(fn, reps),
+                   "auto_host": auto_picks_host(name, e)}
+            for name, fn in ops.items()}
 
 
 def auto_picks_host(op: str, e: int) -> bool:
@@ -1012,6 +1045,356 @@ def graph_phase() -> dict:
               f" host {r['host_s'] * 1e3:.3f} ms, device"
               f" {r['device_s'] * 1e3:.3f} ms, auto ->"
               f" {'host' if r['auto_host'] else 'device'}")
+    out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+# phase 18: BASELINE.json configs[4] ("Leiden community detection + Brandes
+# betweenness on weighted 10M-edge graph") at phase 17's A, with weights
+BC_SOURCES = 64         # graph_centrality's bc_sources (treatments.py:294-297)
+BC_CHECK_SOURCES = 4
+BC_TOL = 1e-3           # host against device (tests/test_host_graph.py:87-113)
+LEIDEN_Q_SLACK = 0.05   # host Q against device Q (test_host_graph.py:145-150)
+HOST_LEIDEN_LIMIT_S = 60.0
+HOST_LEIDEN_FALLBACK = (100_000, 1_000_000)
+CACHE_CHURN = 5_000
+CACHE_MORE_INSERTS = 1_000
+SELECTOR = "3+0+3"
+
+
+def weighted_device_edges(n: int, e: int, seed: int):
+    """:func:`device_edges`' recipe plus weights uniform in [0.1, 5.0) from
+    the same generator."""
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(seed)
+    src, dst = (torch.randint(0, n, (e,), generator=gen, device="cuda",
+                              dtype=torch.int32) for _ in range(2))
+    return src, dst, 0.1 + 4.9 * torch.rand(e, generator=gen, device="cuda")
+
+
+def analytics_auto_host(op: str, n: int, e: int, weighted: bool = False,
+                        sources: int = BC_SOURCES) -> bool:
+    """Whether ``auto`` sends ``op`` (over the 'both' direction, as ``Graph``
+    runs it by default) on a graph of ``n`` nodes and ``e`` edges with host
+    mirrors to the host engine: the routing's estimate and ceiling, as
+    ``Graph`` passes them."""
+    from muninn_tpu_torch.graph import centrality as ctr
+    from muninn_tpu_torch.graph import routing
+
+    estimate, ceiling = {
+        "betweenness": (ctr.brandes_host_seconds(min(n, sources), 2 * e,
+                                                 weighted),
+                        routing.HOST_SECONDS_BRANDES),
+        "closeness": (ctr.closeness_host_seconds(n, 2 * e, weighted),
+                      routing.HOST_SECONDS_CLOSENESS),
+        "leiden": (routing.COST_LEIDEN_EDGE * 2 * e,
+                   routing.HOST_SECONDS_LEIDEN),
+    }[op]
+    return routing.use_host("auto", estimate, ceiling)
+
+
+def analytics_route_times(n: int, e: int, seed: int, reps: int = 3) -> dict:
+    """Host engine against device per analytic on an unweighted
+    ``from_edges`` graph on the card (as the reference's envelope test
+    builds it): 64-source betweenness, closeness and Leiden, and what
+    ``auto`` picks."""
+    from muninn_tpu_torch.graph import Graph
+
+    src, dst = (t.cpu().numpy() for t in device_edges(n, e, seed))
+    g = Graph.from_edges(src, dst)
+    ops = {
+        "betweenness": lambda b: g.betweenness(sample_sources=BC_SOURCES,
+                                               backend=b, as_array=True),
+        "closeness": lambda b: g.closeness(backend=b, as_array=True),
+        "leiden": lambda b: g.leiden(seed=0, backend=b, as_array=True),
+    }
+    return {name: {**host_device_s(fn, reps),
+                   "auto_host": analytics_auto_host(name, g.num_nodes, e)}
+            for name, fn in ops.items()}
+
+
+def leiden_runs(g, runs: int) -> dict:
+    """``runs`` device Leiden runs of ``g`` (seed 0): identical labels and
+    Q in every run, Q equal to ``modularity(labels)``; their times, and the
+    rounds (modularity evaluations) and sweeps (host reads) of one."""
+    from muninn_tpu_torch.graph import community as cmty
+    from muninn_tpu_torch.graph import traversal as trv
+
+    rounds = [0]
+    modularity = cmty.modularity
+
+    def counted(*a, **k):
+        rounds[0] += 1
+        return modularity(*a, **k)
+
+    results, times = [], []
+    cmty.modularity = counted
+    try:
+        for _ in range(runs):
+            rounds[0] = 0
+            trv.reset_host_syncs()
+            res, t = timed_s(lambda: g.leiden(seed=0, backend="device",
+                                              as_array=True))
+            results.append(res)
+            times.append(t)
+    finally:
+        cmty.modularity = modularity
+    labels, q = results[0]
+    check(all(np.array_equal(lab, labels) and qq == q
+              for lab, qq in results[1:]),
+          "device Leiden gave other labels or Q for one seed")
+    qm = g.modularity(labels)
+    check(abs(qm - q) <= 1e-5, f"Leiden's Q {q!r} against modularity {qm!r}")
+    return {"labels": labels, "q": q, "times_s": times,
+            "median_s": statistics.median(times),
+            "communities": int(labels.max()) + 1, "rounds": rounds[0],
+            "sweeps": trv.HOST_SYNCS["leiden"]}
+
+
+def selector_rows_host(hs, hd, n: int, start: int, depth: int) -> list:
+    """The rows ``select`` gives for ``"<depth>+<start>+<depth>"``, built
+    from the host engine's BFS depths in each direction."""
+    from muninn_tpu_torch import native
+
+    best = {start: (0, "self")}
+    for direction, (a, b) in (("ancestor", (hd, hs)),
+                              ("descendant", (hs, hd))):
+        off, _, nbr, _ = native.csr_build(a, b, None, n)
+        dep, _ = native.graph_bfs(off, nbr, start, depth)
+        for v in np.nonzero(dep < 2**30)[0].tolist():
+            if v != start and (v not in best or dep[v] < best[v][0]):
+                best[v] = (int(dep[v]), direction)
+    rows = [(v, d, how) for v, (d, how) in best.items()]
+    rows.sort(key=lambda r: (r[1], str(r[0])))
+    return rows
+
+
+def graph_cache_churn(hs, hd, hw, seed: int) -> dict:
+    """GraphCache on the card at A: from_edges and both CSRs; 5,000 inserts
+    between existing nodes and 5,000 deletes of existing edges, applied by
+    ``incremental_rebuild``, the patched CSRs held against a fresh build
+    and a BFS against the host engine; a full rebuild; save, 1,000 more
+    inserts, save (only the tail block rewritten), load."""
+    import shutil
+
+    from muninn_tpu_torch import GraphCache, native
+    from muninn_tpu_torch.graph import Graph
+
+    def both_csrs():
+        g = gc.graph()
+        g.csr("forward"), g.csr("reverse")
+        return g
+
+    m = {}
+    gc, m["cache_from_edges_s"] = timed_s(
+        lambda: GraphCache.from_edges(hs, hd, hw))
+    g, m["cache_csr_build_s"] = timed_s(both_csrs)
+    r = np.random.default_rng(seed)
+    ids = gc.nodes.ids
+    nn, e = len(ids), gc.num_edges
+
+    def inserts(count):
+        a, b = r.integers(0, nn, (2, count))
+        gc.add_edges([ids[i] for i in a], [ids[i] for i in b],
+                     r.uniform(0.1, 5.0, count).astype(np.float32))
+
+    inserts(CACHE_CHURN)
+    kill = r.choice(e, CACHE_CHURN, replace=False)
+    gc.remove_edges([ids[i] for i in gc._src[kill]],
+                    [ids[i] for i in gc._dst[kill]])
+    _, m["incremental_rebuild_s"] = timed_s(gc.incremental_rebuild)
+    check(gc.graph() is g and g._fwd is not None and g._rev is not None
+          and gc.num_edges == e,
+          "incremental_rebuild did not patch the CSRs in place")
+    fresh = Graph(gc.nodes, gc._src.copy(), gc._dst.copy(), gc._w.copy())
+    for d in ("forward", "reverse"):
+        a, b = g.csr(d), fresh.csr(d)
+        ev = a.e_valid
+        check(ev == b.e_valid and torch.equal(a.offsets, b.offsets)
+              and all(torch.equal(x[:ev], y[:ev])
+                      for x, y in ((a.s(), b.s()), (a.dst, b.dst),
+                                   (a.w(), b.w()))),
+              f"the patched {d} CSR differs from a fresh build")
+    del fresh
+    depth, parent = g.bfs(ids[0], backend="device", as_array=True)
+    off, _, nbr, _ = native.csr_build(gc._src, gc._dst, None, nn)
+    hdepth, hparent = native.graph_bfs(off, nbr, 0, nn)
+    check(np.array_equal(depth, hdepth) and np.array_equal(parent, hparent),
+          "BFS on the patched CSRs differs from the host engine")
+
+    def full():
+        gc.rebuild()
+        return both_csrs()
+
+    g, m["full_rebuild_s"] = timed_s(full)
+    del g
+
+    root = Path(__file__).resolve().parent / "build" / "chip_smoke_ckpt"
+    shutil.rmtree(root, ignore_errors=True)
+    _, m["cache_save_s"] = timed_s(lambda: gc.save(root))
+    blocks = sorted(root.glob("block_*.npz"))
+    mtimes = {f.name: f.stat().st_mtime_ns for f in blocks}
+    inserts(CACHE_MORE_INSERTS)
+    _, m["cache_save_incremental_s"] = timed_s(lambda: gc.save(root))
+    changed = [f.name for f in sorted(root.glob("block_*.npz"))
+               if mtimes.get(f.name) != f.stat().st_mtime_ns]
+    m.update(blocks=len(blocks), blocks_rewritten=changed)
+    check(changed == [blocks[-1].name],
+          f"the incremental save rewrote {changed}, not the tail block")
+    back, m["cache_load_s"] = timed_s(lambda: GraphCache.load(root))
+    check(back.nodes.ids == ids and all(
+        np.array_equal(getattr(back, k), getattr(gc, k))
+        for k in ("_src", "_dst", "_w")), "GraphCache.load: edges differ")
+    shutil.rmtree(root, ignore_errors=True)
+    return m
+
+
+def graph_analytics_phase() -> dict:
+    """Phase 18 (see the module docstring). Returns what the phase's JSON
+    line prints."""
+    from muninn_tpu_torch import select
+    from muninn_tpu_torch import native
+    from muninn_tpu_torch.graph import Graph
+    from muninn_tpu_torch.graph import centrality as ctr
+    from muninn_tpu_torch.graph import routing
+    from muninn_tpu_torch.graph import traversal as trv
+    from muninn_tpu_torch.graph.core import IdentityNodeTable
+
+    t0 = time.perf_counter()
+    # the envelope first: it also makes each device op's first call
+    out = {"envelope": analytics_route_times(*GRAPH_ENVELOPE, seed=11)}
+    for op, r in out["envelope"].items():
+        print(f"  analytics {GRAPH_ENVELOPE[0]:,} x {GRAPH_ENVELOPE[1]:,}"
+              f" {op}: host {r['host_s'] * 1e3:.3f} ms, device"
+              f" {r['device_s'] * 1e3:.3f} ms, auto ->"
+              f" {'host' if r['auto_host'] else 'device'}", flush=True)
+
+    n = GRAPH_SIZES[0][1]
+    e = n * GRAPH_DEGREE
+    out.update(nodes=n, edges=e)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    src, dst, w = weighted_device_edges(n, e, seed=18)
+    g = Graph.from_device_edges(src, dst, num_nodes=n, weights=w)
+    del src, dst, w
+
+    # betweenness: 64 weighted sources, then the 4-source check's device half
+    out["betweenness_batch"] = ctr.source_batch(BC_SOURCES, 2 * e, n,
+                                                torch.device("cuda"))
+    trv.reset_host_syncs()
+    torch.cuda.reset_peak_memory_stats()
+    cb, out["betweenness_s"] = timed_s(lambda: g.betweenness(
+        weighted=True, sample_sources=BC_SOURCES, seed=0, backend="device",
+        as_array=True))
+    out["betweenness_peak_bytes"] = torch.cuda.max_memory_allocated() - base
+    out["betweenness_host_syncs"] = {
+        k: trv.HOST_SYNCS[k] for k in ("multi_source", "brandes")}
+    check(cb.shape == (n,) and bool(np.isfinite(cb).all())
+          and bool((cb >= 0).all()) and cb.max() > 0,
+          "betweenness: not finite, negative or all zero")
+    out["betweenness_max"] = float(cb.max())
+    cb4, out["betweenness4_s"] = timed_s(lambda: g.betweenness(
+        weighted=True, sample_sources=BC_CHECK_SOURCES, seed=0,
+        backend="device", as_array=True))
+    print(f"  betweenness at A ({BC_SOURCES} weighted sources):"
+          f" {out['betweenness_s']:.3f} s, batch {out['betweenness_batch']},"
+          f" host reads {out['betweenness_host_syncs']}, peak"
+          f" {out['betweenness_peak_bytes'] / 2**30:.3f} GiB", flush=True)
+
+    lei = leiden_runs(g, 3)
+    labels = lei.pop("labels")
+    out["leiden"] = lei
+    out["leiden_s"] = lei["median_s"]
+    print(f"  leiden at A: {lei['times_s']} s, Q {lei['q']:.6f},"
+          f" {lei['communities']:,} communities, {lei['rounds']} rounds,"
+          f" {lei['sweeps']} sweeps", flush=True)
+
+    rows, out["select_s"] = timed_s(lambda: select(g, SELECTOR))
+    out["select_rows"] = len(rows)
+    check(g.device_native, "a device analytic downloaded the host mirrors")
+
+    # the host engine on the same edges, downloaded once
+    js, jd, jw = g._dev_coo
+    (hs, hd, hw), out["download_s"] = timed_s(lambda: tuple(
+        t[:e].cpu().numpy() for t in (js, jd, jw)))
+    depth = int(SELECTOR.split("+")[0])
+    check(rows == selector_rows_host(hs, hd, n, 0, depth),
+          f"select({SELECTOR!r}) differs from the host engine's BFS depths")
+    hg = Graph(IdentityNodeTable(n), hs, hd, hw)
+    cb4h, out["host_betweenness4_s"] = timed_s(lambda: hg.betweenness(
+        weighted=True, sample_sources=BC_CHECK_SOURCES, seed=0,
+        backend="host", as_array=True))
+    out["betweenness4_max_abs_err"] = float(np.max(np.abs(cb4 - cb4h)))
+    check(np.allclose(cb4, cb4h, rtol=BC_TOL, atol=BC_TOL),
+          "4-source betweenness: device and host engines differ")
+    # the device's dedupe and CSR pair against the host's
+    hsd, hdd, hwd = ctr.dedupe_parallel_edges(*hg.host_coo("both"), n)
+    pair = ctr._sorted_pair(*ctr.dedupe_parallel_edges_device(
+        *g._device_coo("both"), n), n)
+    for flip in (0, 1):
+        a, b = (hdd, hsd) if flip else (hsd, hdd)
+        want = native.csr_build(a, b, hwd, n)
+        check(all(np.array_equal(x.cpu().numpy(), y) for x, y in
+                  zip(pair[3 * flip:3 * flip + 3],
+                      (want[0], want[2], want[3]))),
+              "the device's deduplicated CSR differs from the host's")
+    out["deduped_edges"] = len(hsd)
+    del pair, hsd, hdd, hwd
+
+    # Leiden on the host engine: at A, or where its measured cost puts A
+    # above HOST_LEIDEN_LIMIT_S, on a smaller graph of the same recipe
+    out["host_leiden_estimate_s"] = routing.COST_LEIDEN_EDGE * 2 * e
+    if out["host_leiden_estimate_s"] <= HOST_LEIDEN_LIMIT_S:
+        out["host_leiden_at"] = f"{n} x {e}"
+        (_, hq), out["host_leiden_s"] = timed_s(
+            lambda: hg.leiden(seed=0, backend="host", as_array=True))
+        dq = lei["q"]
+    else:
+        sn, se = HOST_LEIDEN_FALLBACK
+        out["host_leiden_at"] = f"{sn} x {se}"
+        ss, sd, sw = weighted_device_edges(sn, se, seed=19)
+        small = Graph.from_device_edges(ss, sd, num_nodes=sn, weights=sw)
+        dq = leiden_runs(small, 1)["q"]
+        ss, sd, sw = (t[:se].cpu().numpy() for t in small._dev_coo)
+        (_, hq), out["host_leiden_s"] = timed_s(lambda: Graph(
+            IdentityNodeTable(sn), ss, sd, sw).leiden(
+                seed=0, backend="host", as_array=True))
+        del small
+    out.update(host_leiden_q=hq, leiden_q_compared=dq)
+    check(dq >= hq - LEIDEN_Q_SLACK,
+          f"device Leiden's Q {dq:.6f} below the host's {hq:.6f}")
+    print(f"  host engine: betweenness ({BC_CHECK_SOURCES} sources)"
+          f" {out['host_betweenness4_s']:.3f} s against the device's"
+          f" {out['betweenness4_s']:.3f} s (max abs error"
+          f" {out['betweenness4_max_abs_err']:.3g}); Leiden at"
+          f" {out['host_leiden_at']} {out['host_leiden_s']:.3f} s, Q"
+          f" {hq:.6f} against the device's {dq:.6f}", flush=True)
+
+    # auto at A: the engine this phase measured faster
+    leiden_host_s = (out["host_leiden_s"] if out["host_leiden_at"]
+                     == f"{n} x {e}" else out["host_leiden_estimate_s"])
+    for op, host_s, dev_s, kw in (
+            ("betweenness", out["host_betweenness4_s"], out["betweenness4_s"],
+             dict(weighted=True, sources=BC_CHECK_SOURCES)),
+            ("leiden", leiden_host_s, out["leiden_s"], {})):
+        auto_host = analytics_auto_host(op, n, e, **kw)
+        out[f"auto_{op}"] = "host" if auto_host else "device"
+        check(auto_host == (host_s < dev_s),
+              f"auto routes {op} at 10M edges to the slower engine")
+    del g, hg, labels, cb, cb4, cb4h
+    torch.cuda.empty_cache()
+
+    out.update(graph_cache_churn(hs, hd, hw, seed=18))
+    print(f"  GraphCache at A: incremental_rebuild of {CACHE_CHURN:,} inserts"
+          f" and {CACHE_CHURN:,} deletes {out['incremental_rebuild_s']:.3f} s,"
+          f" full rebuild and CSRs {out['full_rebuild_s']:.3f} s; save"
+          f" {out['cache_save_s']:.3f} s, after {CACHE_MORE_INSERTS:,}"
+          f" inserts {out['cache_save_incremental_s']:.3f} s"
+          f" ({out['blocks_rewritten']} of {out['blocks']} blocks), load"
+          f" {out['cache_load_s']:.3f} s; select {SELECTOR!r}"
+          f" {out['select_s']:.3f} s ({out['select_rows']:,} rows)",
+          flush=True)
     out["phase_s"] = time.perf_counter() - t0
     return out
 
@@ -2158,6 +2541,11 @@ def main() -> int:
     native_build.join()
     graph17 = graph_phase()
     print(json.dumps({"graph": graph17}))
+
+    # 18. the rest of the graph layer at BASELINE.json configs[4] (no
+    # hand-written kernel)
+    graph18 = graph_analytics_phase()
+    print(json.dumps({"graph_analytics": graph18}))
 
     print(json.dumps({"kernels": [{
         "name": "flat_topk",

@@ -28,12 +28,17 @@ reference. So far it carries:
   which no production path calls, as in the JAX package;
 - graph analytics: ``Graph`` (``graph/``) from edge lists or from edges
   already on the card (``from_device_edges``), its CSR in every direction,
-  BFS, DFS, shortest paths, connected components and PageRank as device
-  fixpoints over ``ops.segments`` (plain torch: the JAX package has no
-  Pallas kernel there) or, where ``graph.routing``'s measured crossovers
-  say the host is faster, on the port's own copy of the native C++ host
-  engine (``native/``, built with g++ at first use into ``build/native/``);
-  ``graph.convert`` carries a graph's state across from either package;
+  BFS, DFS, shortest paths, connected components, PageRank, degree,
+  betweenness (node and edge), closeness, Leiden and modularity as device
+  fixpoints and sweeps over ``ops.segments`` (plain torch: the JAX package
+  has no Pallas kernel there) or, where ``graph.routing``'s measured
+  crossovers say the host is faster, on the port's own copy of the native
+  C++ host engine (``native/``, built with g++ at first use into
+  ``build/native/``); the node selector ``select``; ``GraphCache``, the
+  mutable edge store (delta queue, incremental device-CSR patches,
+  block-granular checkpoints in the JAX package's format);
+  ``graph.convert`` carries a graph's or a cache's state across from
+  either package;
 - ``pairwise_distances`` (``ops.distance``).
 
 Indexes and graphs live on the card (``device="cuda"``) unless the caller
@@ -42,7 +47,7 @@ kernel; on the CPU it runs its plain PyTorch version. The package imports
 ``torch`` and numpy, never ``jax`` and never ``muninn_tpu``.
 """
 
-__version__ = "0.7.0"
+__version__ = "0.8.0"
 
 from muninn_tpu_torch.ops.distance import (  # noqa: F401
     Metric,
@@ -52,8 +57,8 @@ from muninn_tpu_torch.ops.distance import (  # noqa: F401
 from muninn_tpu_torch.index.flat import FlatIndex, QuantizedFlatIndex  # noqa: F401
 from muninn_tpu_torch.index.hnsw import HnswIndex  # noqa: F401
 from muninn_tpu_torch.index.ivf import IvfIndex  # noqa: F401
-from muninn_tpu_torch.graph import Graph  # noqa: F401
+from muninn_tpu_torch.graph import Graph, GraphCache, select  # noqa: F401
 
 __all__ = ["Metric", "parse_metric", "pairwise_distances", "FlatIndex",
            "QuantizedFlatIndex", "HnswIndex", "IvfIndex", "Graph",
-           "__version__"]
+           "GraphCache", "select", "__version__"]

@@ -2,12 +2,12 @@
 
 The Python-call surface replacing the reference's SQL TVFs
 (``graph_bfs``, ``graph_dfs``, ``graph_shortest_path``,
-``graph_components``, ``graph_pagerank`` — ``src/graph_tvf.c``), as in
-``muninn_tpu.graph.api``. Hidden-column SQL parameters become keyword
-arguments; results come back as numpy arrays / lists aligned to original
-node ids instead of SQL rows. Centrality (``degree``, ``betweenness``,
-``edge_betweenness``, ``closeness``) and communities (``leiden``,
-``modularity``) are not ported yet, and this class does not define them.
+``graph_components``, ``graph_pagerank`` — ``src/graph_tvf.c``;
+``graph_degree``/``graph_node_betweenness``/``graph_edge_betweenness``/
+``graph_closeness`` — ``src/graph_centrality.c``; ``graph_leiden`` —
+``src/graph_community.c``), as in ``muninn_tpu.graph.api``. Hidden-column
+SQL parameters become keyword arguments; results come back as numpy arrays
+/ lists aligned to original node ids instead of SQL rows.
 
 Backend routing
 ---------------
@@ -27,6 +27,8 @@ import numpy as np
 import torch
 
 from muninn_tpu_torch import native
+from muninn_tpu_torch.graph import centrality as ctr
+from muninn_tpu_torch.graph import community as cmty
 from muninn_tpu_torch.graph import core
 from muninn_tpu_torch.graph import routing
 from muninn_tpu_torch.graph import traversal as trv
@@ -66,6 +68,27 @@ class Graph(core.Graph):
             # backend='host' opts into the download
             return False
         return use_host(backend, work, ceiling)
+
+    def _device_coo(self, direction: str, weighted: bool = True):
+        """(src, dst, w) of ``direction`` as tensors on the graph's device:
+        the device COO of a device-built graph (nothing crosses to the
+        host), else the host mirrors uploaded. 'both' doubles each edge;
+        ``weighted=False`` gives unit weights."""
+        if self.device_native:
+            e = self._e_dev
+            js, jd, jw = self._dev_coo
+            s, d = js[:e], jd[:e]
+            w = jw[:e] if jw is not None else torch.ones(e, device=js.device)
+        else:
+            s, d, w = (torch.from_numpy(np.ascontiguousarray(a)).to(self.device)
+                       for a in (self._src, self._dst, self._w))
+        if not weighted:
+            w = torch.ones_like(w)
+        if direction == "reverse":
+            return d, s, w
+        if direction == "both":
+            return torch.cat([s, d]), torch.cat([d, s]), torch.cat([w, w])
+        return s, d, w
 
     # ── traversal ──
 
@@ -253,3 +276,156 @@ class Graph(core.Graph):
             return rank
         id_of = self.nodes.id_of
         return {id_of(i): r for i, r in enumerate(rank.tolist())}
+
+    # ── centrality ──
+
+    def degree(
+        self, *, direction: str = "both", weighted: bool = False,
+        normalized: bool = False,
+    ) -> dict:
+        """Degree centrality (``src/graph_centrality.c:667-680``), summed
+        where the edges are: on the device for a device-built graph, on the
+        host mirrors otherwise (as in JAX)."""
+        coo = (self._device_coo("forward") if self.device_native
+               else (self._src, self._dst, self._w))
+        vals = ctr.degree_centrality(
+            *coo, self.num_nodes,
+            direction=direction, weighted=weighted, normalized=normalized,
+        )
+        id_of = self.nodes.id_of
+        return {id_of(i): v for i, v in enumerate(vals.tolist())}
+
+    def _brandes(self, direction, weighted, want_edge, normalized,
+                 sample_sources, auto_approx_threshold, seed, backend):
+        """Brandes on the deduplicated COO of ``direction``, routed by
+        ``_use_host``: (node_cb, edge_cb or None, src, dst) with the
+        deduplicated endpoints as numpy."""
+        n = self.num_nodes
+        e_dir = self.num_edges * (2 if direction == "both" else 1)
+        n_src = ctr.n_sources(n, sample_sources, auto_approx_threshold)
+        if self._use_host(backend,
+                          ctr.brandes_host_seconds(n_src, e_dir, weighted),
+                          routing.HOST_SECONDS_BRANDES):
+            hs, hd, hw = self.host_coo(direction)
+            w = hw if weighted else np.ones(len(hs), np.float32)
+            s, d, w = ctr.dedupe_parallel_edges(hs, hd, w, n)
+            engine = "host"
+        else:
+            s, d, w = ctr.dedupe_parallel_edges_device(
+                *self._device_coo(direction, weighted), n)
+            engine = "device"
+        cb, eb = ctr.betweenness(
+            s, d, w, n,
+            undirected=(direction == "both"), normalized=normalized,
+            want_edge=want_edge, sample_sources=sample_sources,
+            auto_approx_threshold=auto_approx_threshold, seed=seed,
+            backend=engine, weighted_alg=weighted,
+        )
+        return cb, eb, ctr._np(s), ctr._np(d)
+
+    def betweenness(
+        self, *, normalized: bool = False, direction: str = "both",
+        weighted: bool = False, sample_sources: int | None = None,
+        auto_approx_threshold: int = ctr.DEFAULT_APPROX_THRESHOLD,
+        seed: int = 0, backend: str = "auto", as_array: bool = False,
+    ):
+        """Brandes node betweenness (``src/graph_centrality.c:393-512``).
+        sqrt(N)-source sampling above ``auto_approx_threshold``. Returns
+        node_id -> value, or the index-aligned float32 array with
+        ``as_array=True``."""
+        cb, _, _, _ = self._brandes(
+            direction, weighted, False, normalized, sample_sources,
+            auto_approx_threshold, seed, backend)
+        if as_array:
+            return cb
+        id_of = self.nodes.id_of
+        return {id_of(i): v for i, v in enumerate(cb.tolist())}
+
+    def edge_betweenness(
+        self, *, normalized: bool = False, direction: str = "both",
+        weighted: bool = False, sample_sources: int | None = None,
+        auto_approx_threshold: int = ctr.DEFAULT_APPROX_THRESHOLD,
+        seed: int = 0, backend: str = "auto",
+    ) -> dict:
+        """Edge betweenness keyed by (src_id, dst_id). For 'both', the
+        two orientations of an input edge are combined."""
+        _, eb, srcs, dsts = self._brandes(
+            direction, weighted, True, normalized, sample_sources,
+            auto_approx_threshold, seed, backend)
+        out: dict = {}
+        id_of = self.nodes.id_of
+        for s, d, v in zip(srcs.tolist(), dsts.tolist(), eb.tolist()):
+            if direction == "both":
+                key = (id_of(min(s, d)), id_of(max(s, d)))
+            else:
+                key = (id_of(s), id_of(d))
+            out[key] = out.get(key, 0.0) + v
+        return out
+
+    def closeness(
+        self, *, normalized: bool = True, direction: str = "both",
+        weighted: bool = False, backend: str = "auto",
+        as_array: bool = False,
+    ):
+        """Closeness with Wasserman-Faust correction when normalized
+        (``src/graph_centrality.c:1404-1434``). For directed graphs the
+        standard definition uses *incoming* distances, so 'forward' here
+        measures distance from the node along edge direction."""
+        eff_dir = (
+            "both" if direction == "both"
+            else ("reverse" if direction == "forward" else "forward")
+        )
+        n = self.num_nodes
+        e_dir = self.num_edges * (2 if direction == "both" else 1)
+        if self._use_host(backend,
+                          ctr.closeness_host_seconds(n, e_dir, weighted),
+                          routing.HOST_SECONDS_CLOSENESS):
+            hs, hd, hw = self.host_coo(eff_dir)
+            coo = (hs, hd, hw if weighted else np.ones(len(hs), np.float32))
+            engine = "host"
+        else:
+            coo = self._device_coo(eff_dir, weighted)
+            engine = "device"
+        vals = ctr.closeness(*coo, n, normalized=normalized, backend=engine,
+                             weighted_alg=weighted)
+        if as_array:
+            return vals
+        id_of = self.nodes.id_of
+        return {id_of(i): v for i, v in enumerate(vals.tolist())}
+
+    # ── communities ──
+
+    def leiden(
+        self, *, resolution: float = 1.0, seed: int = 0,
+        max_rounds: int = 100, backend: str = "auto",
+        as_array: bool = False,
+    ):
+        """Leiden communities. Returns (node_id -> community_id,
+        modularity) — the reference TVF emits (node, community_id,
+        modularity) rows (``src/graph_community.c``); with
+        ``as_array=True`` the index-aligned int32 labels instead of the
+        dict."""
+        if self._use_host(backend, routing.COST_LEIDEN_EDGE * 2
+                          * max(self.num_edges, 1),
+                          routing.HOST_SECONDS_LEIDEN):
+            coo, engine = self.host_coo("both"), "host"
+        else:
+            coo, engine = self._device_coo("both"), "device"
+        labels, q = cmty.leiden(
+            *coo, self.num_nodes, resolution=resolution, seed=seed,
+            max_rounds=max_rounds, backend=engine,
+        )
+        if as_array:
+            return labels, float(q)
+        id_of = self.nodes.id_of
+        return {id_of(i): lab for i, lab in enumerate(labels.tolist())}, float(q)
+
+    def modularity(self, labels, resolution: float = 1.0) -> float:
+        """Q of a partition: ``labels`` maps node_id -> community, or is
+        the index-aligned label array. Computed on the graph's device."""
+        if isinstance(labels, dict):
+            labels = np.array(
+                [labels[self.nodes.id_of(i)] for i in range(self.num_nodes)],
+                np.int32,
+            )
+        return cmty.modularity(*self._device_coo("both"), labels, resolution)

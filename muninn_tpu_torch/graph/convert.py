@@ -20,6 +20,13 @@ The state:
   ``<d>_offsets [V+1]``, ``<d>_dst [E_cap]`` int32, ``<d>_src`` and
   ``<d>_weights [E_cap]`` where the CSR holds them, ``<d>_e_valid`` and
   ``<d>_max_deg``.
+
+``graph_cache_to_numpy`` and ``graph_cache_from_numpy`` do the same for a
+``GraphCache`` of either package: ``node_ids``, the COO ``src``, ``dst``,
+``w`` in storage order, ``weighted``, ``generation`` and ``block_lens``
+(the persisted block layout, None until a save or load set one). A cache's
+pending deltas are applied first, as ``save`` applies them; its device
+CSRs are derived again on the other side.
 """
 
 from __future__ import annotations
@@ -27,6 +34,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from muninn_tpu_torch.graph.adjacency import GraphCache
 from muninn_tpu_torch.graph.api import Graph
 from muninn_tpu_torch.graph.core import (
     DIRECTIONS,
@@ -50,13 +58,22 @@ def _built(g, direction: str):
             "both": getattr(g, "_both", None)}[direction]
 
 
+def _ids_array(ids) -> np.ndarray:
+    """Interned node ids as numpy: a typed array where numpy keeps every id
+    as it was (ints stay ints, strings strings), else an object array."""
+    arr = np.asarray(ids)
+    if arr.dtype.kind not in "iuU" or arr.tolist() != list(ids):
+        arr = np.array(list(ids), dtype=object)
+    return arr
+
+
 def graph_to_numpy(g) -> dict:
     """The state of ``g``, a ``Graph`` of either package (see the module
     docstring)."""
     state: dict = {"num_nodes": g.num_nodes, "has_weights": g.has_weights,
                    "device_native": bool(g.device_native)}
     if hasattr(g.nodes, "_index"):
-        state["node_ids"] = np.asarray(g.nodes.ids)
+        state["node_ids"] = _ids_array(g.nodes.ids)
     else:
         state["identity_nodes"] = True
     if g._src_np is None and g._dev_coo is not None:
@@ -140,3 +157,48 @@ def graph_from_numpy(state: dict, device: str | torch.device = "cuda") -> Graph:
         else:
             g._both = c
     return g
+
+
+def graph_cache_to_numpy(gc) -> dict:
+    """The state of ``gc``, a ``GraphCache`` of either package, after its
+    pending deltas are applied (see the module docstring)."""
+    gc._ensure_fresh()
+    lens = gc._block_lens
+    return {
+        "node_ids": _ids_array(gc.nodes.ids),
+        "src": np.asarray(gc._src, np.int32),
+        "dst": np.asarray(gc._dst, np.int32),
+        "w": np.asarray(gc._w, np.float32),
+        "weighted": bool(gc.weighted),
+        "generation": int(gc.generation),
+        "block_lens": None if lens is None else [int(x) for x in lens],
+    }
+
+
+def graph_cache_from_numpy(state: dict,
+                           device: str | torch.device = "cuda") -> GraphCache:
+    """The port's ``GraphCache`` of ``state`` (see the module docstring) on
+    ``device``. Its block layout is kept, with no block dirty and no save
+    directory: the first ``save`` writes every block."""
+    gc = GraphCache(weighted=bool(state["weighted"]), device=device)
+    src = np.array(state["src"], np.int32)
+    dst = np.array(state["dst"], np.int32)
+    w = np.array(state["w"], np.float32)
+    ids = list(np.asarray(state["node_ids"]).tolist())
+    n = len(ids)
+    if len(src) != len(dst) or len(src) != len(w):
+        raise ValueError("src, dst and w must have one length")
+    if len(src) and (min(src.min(), dst.min()) < 0
+                     or max(src.max(), dst.max()) >= n):
+        raise ValueError("an edge endpoint lies outside the node ids")
+    lens = state.get("block_lens")
+    if lens is not None and sum(lens) != len(src):
+        raise ValueError("block_lens must sum to the edge count")
+    gc.nodes._ids = ids
+    gc.nodes._index = {u: i for i, u in enumerate(ids)}
+    if len(gc.nodes._index) != n:
+        raise ValueError("node_ids must be distinct")
+    gc._src, gc._dst, gc._w = src, dst, w
+    gc.generation = int(state["generation"])
+    gc._block_lens = None if lens is None else [int(x) for x in lens]
+    return gc

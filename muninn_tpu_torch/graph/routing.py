@@ -12,9 +12,11 @@ host read a sweep, about 2-3 ms an operation; about 9 ms for PageRank's
 device wins by one to three orders of magnitude.
 
 Every constant is the H100 machine's own, measured on an NVIDIA H100 80GB
-HBM3 at a 700 W power limit: the per-unit host costs by ``chip_smoke.py``
-phase 17 and ``tools/probes/graph_probe.py`` at 1M nodes x 10M edges, the
-ceilings from the host-against-device times of both at 5k to 5M edges.
+HBM3 at a 700 W power limit: the traversal and PageRank costs by
+``chip_smoke.py`` phase 17 and ``tools/probes/graph_probe.py`` at 1M nodes
+x 10M edges, their ceilings from the host-against-device times of both at
+5k to 5M edges; centrality's and Leiden's by ``graph_probe.py
+--analytics`` and phase 18, as their comments say.
 Setting ``MUNINN_HOST_GRAPH_SECONDS`` makes its value every operation's
 ceiling.
 """
@@ -61,6 +63,39 @@ HOST_SECONDS_PAGERANK = _ceiling(COST_PAGERANK_EDGE_ITER * 20 * 70_000)
 HOST_SECONDS_SSSP = _ceiling(COST_SSSP_EDGE * 55_000)
 # - an operation without a crossover of its own: BFS's.
 HOST_GRAPH_SECONDS = HOST_SECONDS_BFS
+
+# centrality and communities (``tools/probes/graph_probe.py --analytics``
+# and ``chip_smoke.py`` phase 18, NVIDIA H100 80GB HBM3, 700 W; mean degree
+# 5, weights uniform in [0.1, 5.0); one run each). Brandes and closeness
+# cost per source x both-direction edge, Leiden per both-direction edge; a
+# host cost grows with the graph (cache misses), so each is taken at the
+# largest size measured, and each ceiling is that cost times the work where
+# the device catches up:
+# - Brandes, 64 sources: weighted 63, 69 and 172 ns at 1k, 10k and 100k
+#   nodes (285 at 1M x 10M with 4 sources and the host's dedupe);
+#   unweighted 6.8, 8.4, 24.6 and 30.9 ns at 1k, 10k, 100k and 1M nodes
+COST_BRANDES_SRC_EDGE = 172e-9
+COST_BRANDES_SRC_EDGE_UNWEIGHTED = 30.9e-9
+# - Brandes' crossover: unweighted 4.4 ms host against 13.0 device at 1k x
+#   5k (640k source-edges), 54 against 17.6 at 10k x 50k: near 1.7M; the
+#   weighted host already loses at 1k x 5k (40 against 24 ms), which this
+#   ceiling puts near 300k source-edges;
+HOST_SECONDS_BRANDES = _ceiling(COST_BRANDES_SRC_EDGE_UNWEIGHTED * 1_700_000)
+# - closeness, all sources: unweighted 0.62, 0.65 and 0.67 ns at 1k, 3k and
+#   10k nodes; weighted 34, 35 and 40 ns at 500, 1k and 2k nodes
+COST_CLOSENESS_SRC_EDGE = 40e-9
+COST_CLOSENESS_SRC_EDGE_UNWEIGHTED = 0.67e-9
+# - closeness' crossover: unweighted 6.2 ms host against 10.6 device at 1k
+#   x 5k (10M source-edges), 58.5 against 32.4 at 3k x 15k: near 22M; the
+#   weighted host already loses at 500 x 2.5k (86 against 9.6 ms);
+HOST_SECONDS_CLOSENESS = _ceiling(
+    COST_CLOSENESS_SRC_EDGE_UNWEIGHTED * 22_000_000)
+# - Leiden, whole: 0.36, 0.66, 1.40 and 1.84 us a both-direction edge at
+#   1k, 10k, 100k and 1M nodes (x 5 edges a node), 1.94 at 1M x 10M
+COST_LEIDEN_EDGE = 1.94e-6
+# - Leiden's crossover: 66 ms host against 370 device at 10k x 50k (100k
+#   both-direction edges), 1.40 s against 0.44 at 100k x 500k: near 320k.
+HOST_SECONDS_LEIDEN = _ceiling(COST_LEIDEN_EDGE * 320_000)
 
 
 def use_host(backend: str, host_seconds: float,

@@ -17,9 +17,11 @@ the pull targets, its ``dst`` the source endpoints).
 
 Each fixpoint runs one sweep per step on the tensors' device and reads one
 host boolean per sweep to decide whether to go on; ``HOST_SYNCS`` counts
-those reads per fixpoint. (The JAX package splits its loops into blocks of
-a few sweeps per dispatch, and edges into chunks above 2**25, for limits of
-its TPU worker; the results are the same.)
+those reads per fixpoint (``centrality``'s sigma and delta sweeps and
+``community``'s local-moving sweeps count theirs here too). (The JAX
+package splits its loops into blocks of a few sweeps per dispatch, and
+edges into chunks above 2**25, for limits of its TPU worker; the results
+are the same.)
 """
 
 from __future__ import annotations
@@ -35,7 +37,7 @@ INT_INF = 2**30
 #: it with :func:`reset_host_syncs` and reads it after the run
 HOST_SYNCS: dict[str, int] = {"bfs": 0, "seeded_bfs": 0,
                               "multi_source": 0, "components": 0,
-                              "sssp": 0}
+                              "sssp": 0, "brandes": 0, "leiden": 0}
 
 
 def reset_host_syncs() -> None:
@@ -124,15 +126,15 @@ def multi_source_distances_pull(
     n_passes: int = 24,
 ) -> torch.Tensor:
     """Batched SSSP distances [S, V] via synchronous Bellman-Ford
-    (non-negative weights). Replaces the reference's per-source
-    BFS/Dijkstra engines (``src/graph_centrality.c:261-379``)."""
+    (non-negative weights), in ``w``'s dtype. Replaces the reference's
+    per-source BFS/Dijkstra engines (``src/graph_centrality.c:261-379``)."""
     if max_iters <= 0:
         max_iters = num_nodes
     ids = seg_ids(roff)
     es = esrc[:ids.shape[0]]  # the rows' edges, padding sliced off
     sources = torch.as_tensor(sources, device=roff.device).long()
     dist = torch.full((sources.shape[0], num_nodes), torch.inf,
-                      device=roff.device)
+                      dtype=w.dtype, device=roff.device)
     dist[torch.arange(sources.shape[0], device=roff.device), sources] = 0.0
     for _ in range(max_iters):
         relax = dist.index_select(1, es) + w[None, :es.shape[0]]  # [S, E]

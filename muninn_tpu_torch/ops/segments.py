@@ -38,6 +38,10 @@ import math
 import torch
 
 
+#: rows at least this long get a 1-D prefix scan each (see :func:`seg_sum`)
+LONG_ROW = 1 << 20
+
+
 def n_passes_for(max_segment_len: int) -> int:
     """Shift-doubling pass count covering segments up to
     ``max_segment_len`` (the JAX contract; the port's reductions are exact
@@ -86,7 +90,16 @@ def seg_sum(vals: torch.Tensor, offsets: torch.Tensor) -> torch.Tensor:
     must be 0). Returns ``[..., V]`` in ``vals``' dtype: window differences
     of one float64 (int64 for integers) prefix sum."""
     acc = torch.float64 if vals.is_floating_point() else torch.int64
-    pre = torch.cumsum(vals, dim=-1, dtype=acc)  # pre[i] = S[i + 1]
+    # pre[..., i] = S[i + 1]. Long rows take one 1-D scan each: on the card
+    # the batched scan (``tensor_kernel_scan_innermost_dim``) runs at a few
+    # percent of the memory rate on rows of millions (Brandes' [S, E]
+    # sweeps), while on short rows one batched launch beats S launches
+    if vals.dim() > 1 and vals.shape[-1] >= LONG_ROW:
+        pre = torch.empty(vals.shape, dtype=acc, device=vals.device)
+        for row, out in zip(vals.flatten(0, -2), pre.flatten(0, -2)):
+            torch.cumsum(row, 0, dtype=acc, out=out)
+    else:
+        pre = torch.cumsum(vals, dim=-1, dtype=acc)
 
     def prefix_at(pos):                          # S[pos], S[0] = 0
         return torch.where(pos > 0, pre[..., (pos - 1).clamp_(min=0)], 0)

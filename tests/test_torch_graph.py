@@ -5,7 +5,8 @@ the same seeded edges.
 Mirrors the traversal, shortest-path, components and PageRank cases of
 tests/test_graph.py (each with ``backend="auto"``, which routes these small
 graphs to the host engine as in JAX, and with ``backend="device"``, the
-fixpoints), and its device-build cases. JAX's
+fixpoints), and its device-build cases; centrality, communities, the
+selector and ``GraphCache`` have test files of their own. JAX's
 ``test_chunked_fixpoints_match_one_shot`` and
 ``test_coo_drop_derives_opposite_direction`` have no counterpart: the port
 has neither the chunked fixpoints nor the COO drop.
@@ -580,23 +581,31 @@ def test_graph_defaults_to_the_card():
             Graph.from_device_edges(np.array([0]), np.array([1]), num_nodes=2)
 
 
-def test_unported_analytics_are_not_defined():
-    """Centrality and communities come with a later slice: until then the
-    port's Graph does not define them at all."""
-    mg = Graph.from_edges([0], [1], device=CPU)
-    for name in ("degree", "betweenness", "edge_betweenness", "closeness",
-                 "leiden", "modularity"):
-        with pytest.raises(AttributeError):
-            getattr(mg, name)
+def test_centrality_and_community_methods_answer():
+    """Graph has degree, betweenness, edge_betweenness, closeness, leiden
+    and modularity, and each answers on the CPU, on both engines where it
+    routes."""
+    # a triangle 0-1-2 with 3 hanging off 2, undirected by default
+    mg = Graph.from_edges([0, 1, 2, 2], [1, 2, 0, 3], device=CPU)
+    for backend in ("host", "device"):
+        assert mg.betweenness(backend=backend) == pytest.approx(
+            {0: 0.0, 1: 0.0, 2: 2.0, 3: 0.0})
+        assert mg.edge_betweenness(backend=backend)[(2, 3)] == pytest.approx(3.0)
+        assert mg.closeness(backend=backend)[2] == pytest.approx(1.0)
+        labels, q = mg.leiden(backend=backend)
+        assert set(labels) == {0, 1, 2, 3}
+        assert mg.modularity(labels) == pytest.approx(q)
+    assert mg.degree() == {0: 2.0, 1: 2.0, 2: 3.0, 3: 1.0}
 
 
 def test_graph_modules_import_no_jax():
     res = subprocess.run([sys.executable, "-c", textwrap.dedent("""
         import sys
         import muninn_tpu_torch
-        from muninn_tpu_torch import Graph, pairwise_distances
-        from muninn_tpu_torch.graph import (api, convert, core, pagerank,
-                                            routing, traversal)
+        from muninn_tpu_torch import Graph, GraphCache, pairwise_distances, select
+        from muninn_tpu_torch.graph import (adjacency, api, centrality,
+                                            community, convert, core, pagerank,
+                                            routing, selector, traversal)
         from muninn_tpu_torch.ops import segments
         bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "muninn_tpu")]
         assert not bad, bad

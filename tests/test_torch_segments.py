@@ -14,6 +14,7 @@ import pytest
 import torch
 
 from muninn_tpu.ops import segments as jseg
+from muninn_tpu_torch.ops import segments
 from muninn_tpu_torch.ops.segments import (
     bincount_chunked,
     n_passes_for,
@@ -290,3 +291,14 @@ def test_seg_ids_cover_the_rows():
     np.testing.assert_array_equal(seg_ids(t(off)).numpy(),
                                   [0, 0, 2, 2, 2, 3, 3, 3, 3])
     assert seg_ids(t(np.zeros(4, np.int32))).numel() == 0
+
+
+def test_seg_sum_long_rows_scan_row_by_row(monkeypatch):
+    """Rows of at least LONG_ROW take one 1-D scan each; the sums are the
+    batched scan's."""
+    r = np.random.default_rng(3)
+    vals = torch.from_numpy(r.standard_normal((3, 2, 50)).astype(np.float32))
+    offsets = torch.tensor([0, 7, 7, 30, 50], dtype=torch.int32)
+    want = seg_sum(vals, offsets)
+    monkeypatch.setattr(segments, "LONG_ROW", 50)
+    np.testing.assert_array_equal(seg_sum(vals, offsets).numpy(), want.numpy())
