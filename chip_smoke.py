@@ -212,6 +212,40 @@ Phases, each of which exits non-zero on failure:
    ``save`` again (only the tail block rewritten), ``load`` with equal
    edges. The phase's JSON line (``{"graph_analytics": ...}``) comes before
    the kernels' record; the phase adds no kernel.
+19. Node2Vec at ``BASELINE.json`` configs[3] ("Node2Vec: p/q-biased random
+   walks + SGNS training on 1M-node graph, embeddings indexed into HNSW"):
+   1M nodes in blocks of 1,000, 10M edges drawn on the card (90% inside a
+   block) through ``Graph.from_device_edges``; ``node2vec_train(dim=64,
+   p=0.5, q=2.0, walk_length=80, window=5, neg_samples=5, num_walks=2,
+   epochs=1, seed=0, walk_batch=2**20, sgns_chunk=256, backend="device",
+   output_index=HnswIndex(64, "cosine"))``, the defaults' widths with the
+   depth cut (epochs 5 -> 1, ``num_walks`` 10 -> 2). First, on the card,
+   the node2vec treatment's host and device times at its 2k nodes and at
+   the 4k crossover beside ``auto``'s pick; the hub's weighted draw; the
+   one-step law of the walk (second hop given start and first hop, 100k
+   walkers at three (p, q)) within 5 binomial standard deviations + 0.002
+   of the closed form of the 4-round truncated rejection sampler; one SGNS
+   chunk against the CPU's with the same negatives (within TOL); the walk
+   tables of a weighted 100k-node graph against the CPU's (order equal,
+   sums within 1e-6 relative); the two cliques separated (the host route
+   at seed 2, the device route on average over 8 seeds). Then the run,
+   timed by stage (``train_s`` and ``nodes_per_s``, the treatment's
+   names; prep, walks and SGNS a pass; download; the HNSW insert) with its
+   peak memory and kernel launches (the bulk build's ``flat_topk`` calls);
+   4,096 sampled walks, every step an edge of the 'both' CSR or a dead
+   end's repeat; unit rows, 2,048 of them under their ids in the index;
+   the index's self-retrieval reported (the reference's trainer at this
+   depth leaves every row near one direction, ROADMAP section 3), an exact
+   search finding every sampled row first, the block purity of its top
+   10 reported, and ``HnswIndex`` over 1M random unit rows of the same
+   width finding each of 2,048 rows first for at least MIN_HNSW_RECALL;
+   ``torch.profiler`` splits of one walk batch and 64 SGNS chunks; one
+   default 4,096-walker batch timed; then ``flat_topk`` at the bulk
+   build's call (8,192 x 1M x 64, k=33, bf16) and ``gather_block_dots`` at
+   the search's ``[32, 64]`` bf16 blocks, each against its plain version,
+   timed with its bound (and, for ``flat_topk``, the bf16 library call in
+   chunks of 2,048 queries). The phase's JSON line (``{"node2vec":
+   ...}``) comes before the kernels' record; the phase adds no kernel.
 
 Each kernel's record carries its bound: the larger of the operations over
 the card's peak rate for their type and the bytes (each input read once,
@@ -319,12 +353,14 @@ def bf16_round(x: np.ndarray) -> np.ndarray:
 
 def dist64_bf16(q: np.ndarray, c: np.ndarray, metric: str) -> np.ndarray:
     """Float64 distances of matching rows as the bf16-operand mode ranks
-    them: the product of the bf16-rounded query (unit query for cosine) and
-    the bf16-rounded raw row; norms from the unrounded rows."""
+    them: the product of the bf16-rounded query and the bf16-rounded raw
+    row; norms from the unrounded rows. For cosine, ``q`` is the unit query
+    as the kernel's wrapper forms it (``unit_rows`` in f32 on the card):
+    normalised in float64 instead, one of its components can round to the
+    other bf16 neighbour, which moves every distance of that query by up to
+    about 2e-4."""
     q64, c64 = q.astype(np.float64), c.astype(np.float64)
-    if metric == "cosine":
-        q64 = q64 / np.maximum(np.linalg.norm(q64, axis=-1, keepdims=True), 1e-30)
-    dots = (bf16_round(q64).astype(np.float64)
+    dots = (bf16_round(q).astype(np.float64)
             * bf16_round(c).astype(np.float64)).sum(-1)
     if metric == "inner_product":
         return -dots
@@ -359,10 +395,15 @@ def compare(kd, ki, pd, pi, q, c, valid, metric, ref=dist64) -> float:
     if len(bad):
         b, r = bad[:, 0], bad[:, 1]
         rows = c[torch.from_numpy(ki[b, r].astype(np.int64)).to(c.device)]
+        if ref is dist64_bf16 and metric == "cosine":
+            from muninn_tpu_torch.ops.distance import unit_rows
+
+            q = unit_rows(q)  # the whole batch, as the wrapper normalises it
         qs = q[torch.from_numpy(b).to(q.device)]
         true = ref(qs.cpu().numpy(), rows.cpu().numpy(), metric)
-        check(bool(np.all(np.abs(true - pd[b, r]) <= TOL + TOL * np.abs(pd[b, r]))),
-              f"{len(bad)} ids differ without a tie")
+        untied = np.abs(true - pd[b, r]) > TOL + TOL * np.abs(pd[b, r])
+        check(not untied.any(), f"{int(untied.sum())} of {len(bad)} differing"
+              " ids without a tie")
     return float(np.max(np.abs(kd[fin] - pd[fin]), initial=0.0))
 
 
@@ -1396,6 +1437,558 @@ def graph_analytics_phase() -> dict:
           f" {out['select_s']:.3f} s ({out['select_rows']:,} rows)",
           flush=True)
     out["phase_s"] = time.perf_counter() - t0
+    return out
+
+
+# phase 19: BASELINE.json configs[3] ("Node2Vec: p/q-biased random walks +
+# SGNS training on 1M-node graph, embeddings indexed into HNSW"): a planted
+# partition of 1M nodes in blocks of 1,000, 10M edges drawn on the card,
+# 90% of them inside a block (about 20M both-direction edges, phase 17's A
+# in size)
+N2V_NODES = 1_000_000
+N2V_BLOCK = 1_000
+N2V_EDGES = 10_000_000
+N2V_INTRA = 0.9
+# the trainer at its default widths, p=0.5 and q=2 (walks kept near their
+# start: a step back weighs 2, an outward step 0.5); depth cut:
+# epochs 5 -> 1, num_walks 10 -> 2; one walker batch a pass
+N2V_TRAIN = dict(dim=64, p=0.5, q=2.0, walk_length=80, window=5,
+                 neg_samples=5, num_walks=2, epochs=1, seed=0,
+                 walk_batch=2**20, sgns_chunk=256, backend="device")
+N2V_DEFAULT_BATCH = 4096      # node2vec_train's default walk_batch
+N2V_WALK_SAMPLE = 4096        # walks checked edge by edge
+N2V_SELF_QUERIES = 2048       # rows searched for themselves in the index
+N2V_PROFILE_CHUNKS = 64       # SGNS chunks under the profiler
+N2V_LAW_WALKERS = 100_000
+N2V_LAW_PQ = ((1.0, 1.0), (0.25, 4.0), (4.0, 0.25))
+N2V_CLIQUE_SEEDS = 8
+# the node2vec treatment (benchmarks/harness/treatments.py:488-508):
+# Erdos-Renyi at mean degree 5, dim 32, 2 walks of 20 a node, 1 epoch,
+# walker batches of 1,024; its 2k-node point and the measured crossover
+N2V_TREATMENT = dict(dim=32, num_walks=2, walk_length=20, epochs=1,
+                     walk_batch=1024, sgns_chunk=256)
+N2V_TREATMENT_NODES = 2_000
+N2V_CROSSOVER_NODES = 4_000
+
+
+def planted_edges(n: int, e: int, seed: int, device="cuda"):
+    """``e`` edges over ``n`` nodes in blocks of ``N2V_BLOCK``: uniform
+    sources, and a destination inside the source's block with probability
+    ``N2V_INTRA``, else uniform; drawn from a seeded generator on
+    ``device``."""
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+
+    def ints(hi):
+        return torch.randint(0, hi, (e,), generator=gen, device=device,
+                             dtype=torch.int32)
+
+    src = ints(n)
+    inside = torch.rand(e, generator=gen, device=device) < N2V_INTRA
+    near = src // N2V_BLOCK * N2V_BLOCK + ints(N2V_BLOCK)
+    return src, torch.where(inside, near, ints(n))
+
+
+def profile_ops(fn, top: int = 6) -> dict:
+    """Host wall ms of one call, the device's busy ms in one under
+    ``torch.profiler`` (idle share = 1 - busy / wall) and the ``top`` ops
+    by the device ms of the kernels each launched itself."""
+    act = [torch.profiler.ProfilerActivity.CPU,
+           torch.profiler.ProfilerActivity.CUDA]
+    _, wall = timed_s(fn)
+    with torch.profiler.profile(activities=act) as prof:
+        fn()
+        torch.cuda.synchronize()
+    kind = torch.autograd.DeviceType.CUDA
+    busy, last = 0.0, float("-inf")
+    for s, t in sorted((e.time_range.start, e.time_range.end)
+                       for e in prof.events() if e.device_type == kind):
+        busy += max(0.0, t - max(s, last))
+        last = max(last, t)
+    ops = sorted(((e.key, getattr(e, "self_device_time_total", 0.0) / 1e3)
+                  for e in prof.key_averages() if e.key.startswith("aten::")),
+                 key=lambda kv: -kv[1])
+    busy_ms = busy / 1e3
+    return {"wall_ms": wall * 1e3, "busy_ms": busy_ms,
+            "idle_share": 1.0 - busy_ms / (wall * 1e3),
+            "top_ops_ms": [kv for kv in ops[:top] if kv[1] > 0]}
+
+
+def n2v_route_times(n: int, reps: int = 3) -> dict:
+    """The node2vec treatment at ``n`` nodes on the card: host trainer
+    against device route (median of ``reps`` after a warm call each), the
+    host estimate and ``auto``'s pick."""
+    from muninn_tpu_torch.graph import Graph, routing
+    from muninn_tpu_torch.models import node2vec as n2v
+
+    r = np.random.default_rng(n)
+    g = Graph.from_edges(r.integers(0, n, 5 * n), r.integers(0, n, 5 * n))
+    out = host_device_s(lambda b: n2v.node2vec_train(
+        g, seed=1, backend=b, **N2V_TREATMENT), reps)
+    tr = N2V_TREATMENT
+    est = n2v.host_estimate_s(n, tr["dim"], tr["num_walks"], tr["walk_length"],
+                              5, 5, tr["epochs"])
+    out.update(nodes=n, host_estimate_s=est,
+               auto_host=routing.use_host("auto", est,
+                                          routing.HOST_N2V_SECONDS))
+    return out
+
+
+def law_graph(device: str):
+    """12 nodes, 30 distinct weighted undirected edges, no self-loops; and
+    each node's neighbours with their summed weights."""
+    from muninn_tpu_torch.graph import Graph
+
+    r = np.random.default_rng(12)
+    pairs = set()
+    while len(pairs) < 30:
+        a, b = sorted(r.integers(0, 12, 2))
+        if a != b:
+            pairs.add((int(a), int(b)))
+    s, d = map(np.array, zip(*sorted(pairs)))
+    w = r.uniform(0.5, 3.0, len(s)).astype(np.float32)
+    nbrs = {v: {} for v in range(12)}
+    for a, b, wt in zip(s, d, w):
+        nbrs[a][b] = nbrs[a].get(b, 0.0) + float(wt)
+        nbrs[b][a] = nbrs[b].get(a, 0.0) + float(wt)
+    return Graph.from_edges(s, d, w, device=device), nbrs
+
+
+def law_worst(walks: np.ndarray, nbrs: dict, p: float, q: float) -> float:
+    """The largest deviation of a second-hop frequency, grouped by (start,
+    first hop), from the closed form of the 4-round truncated rejection
+    sampler, as a share of 5 binomial standard deviations + 0.002 (at most
+    1 passes): P(c) = pi a (1 - (1 - A)^4) / A + pi (1 - a) (1 - A)^3, pi
+    the weight share, a = bias / max_bias, A = sum of pi a."""
+    groups = {}
+    for s0, f, c in walks:
+        groups.setdefault((int(s0), int(f)), []).append(int(c))
+    max_bias = max(1 / p, 1.0, 1 / q)
+    worst = 0.0
+    for (prev, cur), cs in groups.items():
+        row = nbrs[cur]
+        tot = sum(row.values())
+        pi = {c: wt / tot for c, wt in row.items()}
+        a = {c: (1 / p if c == prev else 1.0 if c in nbrs[prev] else 1 / q)
+             / max_bias for c in row}
+        acc = sum(pi[c] * a[c] for c in row)
+        counts = np.bincount(cs, minlength=12)
+        check(set(np.nonzero(counts)[0]) <= set(row),
+              "a walk left the first hop's row")
+        for c in row:
+            pc = (pi[c] * a[c] * (1 - (1 - acc) ** 4) / acc
+                  + pi[c] * (1 - a[c]) * (1 - acc) ** 3)
+            tol = 5.0 * np.sqrt(pc * (1 - pc) / len(cs)) + 0.002
+            worst = max(worst, abs(counts[c] / len(cs) - pc) / tol)
+    return worst
+
+
+def n2v_card_checks() -> dict:
+    """The port's node2vec sub-steps on the card against their closed forms
+    and the CPU: the hub's weighted draw, the one-step law, the SGNS update
+    (same negatives), the walk tables at 100k nodes, and the two cliques."""
+    from muninn_tpu_torch.graph import Graph
+    from muninn_tpu_torch.models import node2vec as n2v
+
+    out = {}
+
+    def cuda_gen(seed):
+        gen = torch.Generator(device="cuda")
+        gen.manual_seed(seed)
+        return gen
+
+    def tables(g):
+        c = g.csr("both")
+        return c, *n2v._row_sorted_cumw(c.s(), c.dst, c.w(), c.offsets,
+                                       c.max_deg)
+
+    # the hub: at p = q = 1 the next step follows the edge weights
+    src = ["h"] * 9 + [f"n{i}" for i in range(1, 10)]
+    dst = [f"n{i}" for i in range(1, 10)] + ["h"] * 9
+    g = Graph.from_edges(src, dst, np.concatenate(
+        [np.arange(1, 10, dtype=np.float32), np.ones(9, np.float32)]))
+    c, dst_s, cumw = tables(g)
+    hub = g.node_index("h")
+    counts = np.zeros(g.num_nodes)
+    for rep in range(5):
+        walks = n2v.biased_walks(
+            cuda_gen(rep), c.offsets, dst_s, cumw,
+            torch.full((2048,), hub, dtype=torch.int32, device="cuda"),
+            g.num_nodes, 1, 1.0, 1.0, max_deg=c.max_deg)
+        counts += np.bincount(walks[:, 1].cpu().numpy(), minlength=g.num_nodes)
+    check(counts[hub] == 0, "the hub's walk stayed in place")
+    hub_err = max(abs(counts[g.node_index(f"n{i}")] / counts.sum() - i / 45.0)
+                  / (0.015 + 0.25 * i / 45.0) for i in range(1, 10))
+    check(hub_err <= 1.0, "the hub's weighted draw does not follow its weights")
+    out["hub_worst_share_of_tolerance"] = hub_err
+
+    # the one-step law at three (p, q)
+    g, nbrs = law_graph("cuda")
+    c, dst_s, cumw = tables(g)
+    starts = torch.arange(N2V_LAW_WALKERS, device="cuda",
+                          dtype=torch.int32) % 12
+    out["law_worst_share_of_tolerance"] = {}
+    for p, q in N2V_LAW_PQ:
+        walks = n2v.biased_walks(cuda_gen(7), c.offsets, dst_s, cumw, starts,
+                                 12, 2, p, q, max_deg=c.max_deg).cpu().numpy()
+        worst = law_worst(walks, nbrs, p, q)
+        check(worst <= 1.0, f"the walk's one-step law fails at p={p}, q={q}")
+        out["law_worst_share_of_tolerance"][f"p={p},q={q}"] = worst
+
+    # one SGNS chunk at the main path's shape, the same negatives on both
+    r = np.random.default_rng(3)
+    v, dim = 20_000, N2V_TRAIN["dim"]
+    syn0 = torch.from_numpy(r.normal(0, 0.3, (v, dim)).astype(np.float32))
+    syn1 = torch.from_numpy(r.normal(0, 0.3, (v, dim)).astype(np.float32))
+    walks = torch.from_numpy(r.integers(0, v, (N2V_TRAIN["sgns_chunk"],
+                                               N2V_TRAIN["walk_length"] + 1),
+                                        dtype=np.int64).astype(np.int32))
+    pc = n2v._pair_count(*walks.shape, N2V_TRAIN["window"])
+    negs = torch.from_numpy(r.integers(0, v, (pc, N2V_TRAIN["neg_samples"])))
+    cpu = n2v._sgns_apply(syn0.clone(), syn1.clone(), walks, negs, 0.025,
+                          N2V_TRAIN["window"])
+    gpu = n2v._sgns_apply(syn0.cuda(), syn1.cuda(), walks.cuda(), negs.cuda(),
+                          0.025, N2V_TRAIN["window"])
+    out["sgns_max_abs_err"] = max(float((a.cpu() - b).abs().max())
+                                  for a, b in zip(gpu, cpu))
+    check(out["sgns_max_abs_err"] <= TOL,
+          f"the SGNS update on the card differs from the CPU's by"
+          f" {out['sgns_max_abs_err']:.3g}")
+
+    # the walk tables of a weighted 100k-node graph, on the card and the CPU
+    s, d = planted_edges(100_000, 1_000_000, seed=23)
+    w = torch.rand(s.shape[0], generator=cuda_gen(24), device="cuda") + 0.1
+    got = tables(Graph.from_device_edges(s, d, num_nodes=100_000, weights=w))
+    want = tables(Graph.from_device_edges(s.cpu(), d.cpu(), num_nodes=100_000,
+                                          weights=w.cpu()))
+    check(torch.equal(got[1].cpu(), want[1]),
+          "the walk tables' row order differs between the card and the CPU")
+    out["cumw_max_rel_err"] = float(((got[2].cpu() - want[2]).abs()
+                                     / want[2].abs().clamp(min=1e-30)).max())
+    check(out["cumw_max_rel_err"] <= 1e-6,
+          f"the walk tables' prefix sums differ by {out['cumw_max_rel_err']:.3g}")
+
+    # the two cliques: the host route at JAX's test seed, the device route
+    # on average over seeds (its count-normalised step separates them by
+    # about 0.12, with a wide spread from seed to seed)
+    ends = [(f"v{b + i}", f"v{b + j}") for b in (0, 8) for i in range(8)
+            for j in range(i + 1, 8)] + [("v0", "v8")]
+    g = Graph.from_edges(*zip(*ends))
+    kw = dict(dim=16, num_walks=6, walk_length=12, window=4, neg_samples=4,
+              epochs=4, walk_batch=64, sgns_chunk=64)
+
+    def separation(ids, emb):
+        idx = {node: i for i, node in enumerate(ids)}
+        a = [idx[f"v{i}"] for i in range(8)]
+        b = [idx[f"v{i}"] for i in range(8, 16)]
+        sims = emb @ emb.T
+        return float((sims[np.ix_(a, a)].mean() + sims[np.ix_(b, b)].mean())
+                     / 2 - sims[np.ix_(a, b)].mean())
+
+    out["cliques_host"] = separation(*n2v.node2vec_train(g, seed=2, **kw))
+    out["cliques_device"] = [separation(*n2v.node2vec_train(
+        g, seed=seed, backend="device", **kw))
+        for seed in range(N2V_CLIQUE_SEEDS)]
+    check(out["cliques_host"] > 0.1
+          and statistics.mean(out["cliques_device"]) > 0.1,
+          f"the two cliques are not separated: {out['cliques_host']},"
+          f" {out['cliques_device']}")
+    return out
+
+
+def node2vec_phase() -> dict:
+    """Phase 19 (see the module docstring). Returns what the phase's JSON
+    line prints."""
+    from muninn_tpu_torch import FlatIndex, HnswIndex
+    from muninn_tpu_torch.graph import Graph
+    from muninn_tpu_torch.index.hnsw import _route
+    from muninn_tpu_torch.models import node2vec as n2v
+    from muninn_tpu_torch.ops import _build
+    from muninn_tpu_torch.ops.beam import (gather_block_dots_cuda,
+                                           gather_block_dots_plain)
+    from muninn_tpu_torch.ops.distance import unit_rows as unit_t
+    from muninn_tpu_torch.ops.flat_topk import (flat_topk, flat_topk_cuda,
+                                                flat_topk_plain)
+
+    t_phase = time.perf_counter()
+    out = {"routing": {
+        "treatment": n2v_route_times(N2V_TREATMENT_NODES),
+        "crossover": n2v_route_times(N2V_CROSSOVER_NODES)}}
+    for what, r in out["routing"].items():
+        print(f"  node2vec treatment at {r['nodes']:,} nodes ({what}): host"
+              f" {r['host_s'] * 1e3:.1f} ms, device {r['device_s'] * 1e3:.1f}"
+              f" ms, host estimate {r['host_estimate_s'] * 1e3:.1f} ms, auto"
+              f" -> {'host' if r['auto_host'] else 'device'}", flush=True)
+    out["card_checks"] = n2v_card_checks()
+    print(f"  node2vec on the card: {out['card_checks']}", flush=True)
+
+    n, e = N2V_NODES, N2V_EDGES
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    src, dst = planted_edges(n, e, seed=19)
+    g = Graph.from_device_edges(src, dst, num_nodes=n)
+    del src, dst
+    index = HnswIndex(N2V_TRAIN["dim"], "cosine")
+
+    # every stage of the entry point timed by wrappers that synchronise
+    spans, kept = {}, {}
+    saved = {name: getattr(n2v, name) for name in
+             ("_row_sorted_cumw", "biased_walks", "sgns_walk_batch", "_finish")}
+    saved_insert = index.insert
+
+    def fenced(name, fn):
+        def call(*a, **kw):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            res = fn(*a, **kw)
+            torch.cuda.synchronize()
+            spans.setdefault(name, []).append((t0, time.perf_counter()))
+            kept.setdefault(name, res)  # the first call's result
+            return res
+        return call
+
+    torch.cuda.reset_peak_memory_stats()
+    _build.reset_launches()
+    try:
+        for name, fn in saved.items():
+            setattr(n2v, name, fenced(name, fn))
+        index.insert = fenced("insert", saved_insert)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        node_ids, emb = n2v.node2vec_train(g, output_index=index, **N2V_TRAIN)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+    finally:
+        for name, fn in saved.items():
+            setattr(n2v, name, fn)
+        index.insert = saved_insert
+    launches = dict(_build.LAUNCHES)
+    out["peak_bytes"] = torch.cuda.max_memory_allocated() - base
+
+    def dur(name):
+        return [b - a for a, b in spans[name]]
+
+    insert_s = dur("insert")[0]
+    passes = N2V_TRAIN["num_walks"] * N2V_TRAIN["epochs"]
+    wl = N2V_TRAIN["walk_length"]
+    pairs = (n2v._pow2_at_least(n) * n2v._pair_count(1, wl + 1,
+                                                     N2V_TRAIN["window"]))
+    out.update(
+        nodes=n, edges=e, train_s=t1 - t0 - insert_s,
+        nodes_per_s=n / (t1 - t0 - insert_s), total_s=t1 - t0,
+        prep_s=spans["biased_walks"][0][0] - t0,
+        cumw_s=dur("_row_sorted_cumw")[0],
+        walks_s=dur("biased_walks"), sgns_s=dur("sgns_walk_batch"),
+        download_s=spans["_finish"][0][0] - spans["sgns_walk_batch"][-1][1],
+        normalise_s=dur("_finish")[0] - insert_s, insert_s=insert_s,
+        launches=launches)
+    check(len(out["walks_s"]) == passes and len(out["sgns_s"]) == passes,
+          f"{len(out['walks_s'])} walk batches for {passes} passes")
+    out["walk_ms_per_step"] = [s * 1e3 / wl for s in out["walks_s"]]
+    out["sgns_pairs_per_s"] = [pairs / s for s in out["sgns_s"]]
+    print(f"  node2vec at {n:,} nodes x {e:,} edges: train"
+          f" {out['train_s']:.3f} s ({out['nodes_per_s']:.0f} nodes/s): prep"
+          f" {out['prep_s']:.3f} s (walk tables {out['cumw_s']:.3f}), walks"
+          f" {[round(s, 3) for s in out['walks_s']]} s, SGNS"
+          f" {[round(s, 3) for s in out['sgns_s']]} s, download"
+          f" {out['download_s']:.3f} s, normalise {out['normalise_s']:.3f} s;"
+          f" HNSW insert {insert_s:.3f} s; peak"
+          f" {out['peak_bytes'] / 2**30:.3f} GiB; launches {launches}",
+          flush=True)
+    n_sweep = -(-n // 8192)
+    check(launches["flat_topk_mma"] >= n_sweep,
+          f"the HNSW build launched the bf16 kernel {launches['flat_topk_mma']}"
+          f" times for {n_sweep} sweep chunks")
+
+    # the walks: every step an edge of the 'both' CSR, or a dead end's repeat
+    c = g.csr("both")
+    ev = c.e_valid
+    keys = torch.sort(c.s()[:ev].long() * n + c.dst[:ev].long()).values
+    r = np.random.default_rng(19)
+    gen_ctl = torch.Generator(device="cuda")
+    gen_ctl.manual_seed(19)
+    rows = torch.from_numpy(r.choice(n, N2V_WALK_SAMPLE, replace=False)).cuda()
+    wk = kept["biased_walks"][rows].long()
+    a, b = wk[:, :-1], wk[:, 1:]
+    key = a * n + b
+    pos = torch.searchsorted(keys, key).clamp(max=ev - 1)
+    deg = c.degrees().long()
+    ok = (keys[pos] == key) | ((a == b) & (deg[a] == 0))
+    check(bool(ok.all()), f"{int((~ok).sum())} walk steps are not edges")
+
+    # the embeddings and the output index: every row under its id
+    norms = np.linalg.norm(emb, axis=1)
+    check(emb.shape == (n, N2V_TRAIN["dim"]) and bool(np.isfinite(emb).all())
+          and float(np.abs(norms - 1).max()) <= TOL,
+          "embeddings not finite unit rows")
+    check(node_ids == list(range(n)) and len(index) == n,
+          f"the index holds {len(index)} rows")
+    qrows = np.sort(r.choice(n, N2V_SELF_QUERIES, replace=False))
+    slots = torch.from_numpy(index.store.slots_of(qrows + 1).astype(np.int64))
+    check(np.array_equal(index.store.vectors[slots.cuda()].cpu().numpy(),
+                         emb[qrows]), "an index row differs from its embedding")
+    # the reference's count-normalised step at this depth leaves every
+    # embedding near one direction (ROADMAP section 3): the norm of the mean
+    # row, and the output index's self-retrieval, reported
+    out["mean_row_norm"] = float(np.linalg.norm(emb.mean(0, dtype=np.float64)))
+    _build.reset_launches()
+    hids, _ = index.search(emb[qrows], k=10)
+    torch.cuda.synchronize()
+    out["search_launches"] = dict(_build.LAUNCHES)
+    check(out["search_launches"]["beam_dots"] > 0 and bool((hids > 0).all()),
+          f"the index's search launched {out['search_launches']} or came"
+          " back short")
+    out["self_recall_output_index"] = float((hids[:, 0] == qrows + 1).mean())
+    # the block purity of each sampled row's exact top 10 (itself left out)
+    exact = FlatIndex(N2V_TRAIN["dim"], "cosine", capacity=n)
+    exact.insert(np.arange(1, n + 1), emb)
+    fids, _ = exact.search(emb[qrows], k=11)
+    del exact
+    check(bool((fids[:, 0] == qrows + 1).all()),
+          "an exact search does not find a row's own embedding first")
+    nb = fids[:, 1:]
+    out["block_purity_top10"] = float(
+        ((nb - 1) // N2V_BLOCK == (qrows[:, None] // N2V_BLOCK)).mean())
+    out["block_purity_chance"] = (N2V_BLOCK - 1) / (n - 1)
+    # the control: the same index at the same width and size over random
+    # unit rows, where nothing is collapsed, holds the self-retrieval floor
+    ctl_rows = unit_t(torch.randn((n, N2V_TRAIN["dim"]), generator=gen_ctl,
+                                  device="cuda")).cpu().numpy()
+    ctl = HnswIndex(N2V_TRAIN["dim"], "cosine")
+    ctl.insert(np.arange(1, n + 1), ctl_rows)
+    cids, _ = ctl.search(ctl_rows[qrows], k=10)
+    del ctl, ctl_rows
+    out["self_recall_control"] = float((cids[:, 0] == qrows + 1).mean())
+    check(out["self_recall_control"] >= MIN_HNSW_RECALL,
+          f"self-retrieval over random rows {out['self_recall_control']}"
+          f" < {MIN_HNSW_RECALL}")
+    print(f"  {N2V_WALK_SAMPLE} walks edge by edge: ok; unit rows, norm of"
+          f" the mean row {out['mean_row_norm']:.5f}; index of {len(index):,},"
+          f" every sampled row under its id; self-retrieval"
+          f" {out['self_recall_output_index']} (search launches"
+          f" {out['search_launches']}), {out['self_recall_control']} over"
+          f" random unit rows; exact top-10 block purity"
+          f" {out['block_purity_top10']:.5f} (chance"
+          f" {out['block_purity_chance']:.5f})", flush=True)
+
+    # one walk batch and 64 SGNS chunks under the profiler; one batch of
+    # the default walk_batch timed
+    off, dst_s, cumw = c.offsets, *kept["_row_sorted_cumw"]
+    gen = torch.Generator(device="cuda")
+    gen.manual_seed(5)
+    tr = N2V_TRAIN
+
+    def walk(starts):
+        return n2v.biased_walks(gen, off, dst_s, cumw, starts, n,
+                                tr["walk_length"], tr["p"], tr["q"],
+                                max_deg=c.max_deg)
+
+    big = torch.arange(tr["walk_batch"], device="cuda", dtype=torch.int32) % n
+    out["profile_walk_batch"] = profile_ops(lambda: walk(big))
+    neg_table = torch.as_tensor(n2v.build_negative_table(
+        deg.cpu().numpy()), device="cuda")
+    syn0 = (torch.rand((n, tr["dim"]), generator=gen, device="cuda") - 0.5) / tr["dim"]
+    syn1 = torch.zeros_like(syn0)
+    walks = kept["biased_walks"][:N2V_PROFILE_CHUNKS * tr["sgns_chunk"]]
+
+    def sgns(wk):
+        n2v.sgns_walk_batch(syn0, syn1, wk, neg_table, gen, 0.025,
+                            tr["window"], tr["neg_samples"],
+                            min(tr["sgns_chunk"], wk.shape[0]))
+
+    out["profile_sgns_64_chunks"] = profile_ops(lambda: sgns(walks))
+    small = big[:N2V_DEFAULT_BATCH]
+    small_walks, out["default_batch_walks_s"] = timed_s(lambda: walk(small))
+    _, out["default_batch_sgns_s"] = timed_s(lambda: sgns(small_walks))
+    print(f"  profiled: walk batch of {tr['walk_batch']:,}"
+          f" {out['profile_walk_batch']}; {N2V_PROFILE_CHUNKS} SGNS chunks"
+          f" {out['profile_sgns_64_chunks']}; one default batch of"
+          f" {N2V_DEFAULT_BATCH}: walks {out['default_batch_walks_s']:.4f} s,"
+          f" SGNS {out['default_batch_sgns_s']:.4f} s", flush=True)
+    del syn0, syn1, walks, kept, keys, wk, key, pos, ok
+
+    # the two kernels at the output index's call shapes (d = 64)
+    corpus = index.store.vectors[:n]
+    valid = index.store.valid[:n]
+    qb = corpus[:8192]  # the bulk build's first sweep call
+    kb = index.m0 + 1
+    kd, ki = flat_topk_cuda(qb, corpus, kb, metric="cosine", corpus_valid=valid,
+                            precision="default")
+    torch.cuda.synchronize()
+    pd, pi = flat_topk_plain(qb, corpus, kb, metric="cosine",
+                             corpus_valid=valid, precision="default")
+    out["flat_max_abs_err"] = compare(kd, ki, pd, pi, qb, corpus, valid,
+                                      "cosine", ref=dist64_bf16)
+    inv = 1.0 / torch.clamp(torch.linalg.norm(corpus, dim=1), min=1e-30)
+    c16 = corpus.bfloat16()
+
+    def library(qs):
+        """The bf16 yardstick of phase 9 (bf16 matmul with f32 output, x
+        1/|c|, ``torch.topk``), by chunks of 2,048 queries: one [8,192, 1M]
+        f32 block would not fit beside the index."""
+        res = []
+        for s0 in range(0, qs.shape[0], 2048):
+            sims = torch.mm(unit_t(qs[s0:s0 + 2048]).bfloat16(), c16.T,
+                            out_dtype=torch.float32) * inv[None, :]
+            res.append(torch.topk(torch.where(valid, sims, -torch.inf), kb,
+                                  dim=1))
+        return res
+
+    lib_d = library(qb[:2048])[0].values
+    check(bool(torch.isclose(1.0 - lib_d[:, 0], kd[:2048, 0], rtol=TOL,
+                             atol=TOL).all()),
+          "the bf16 yardstick's top-1 distances differ from the kernel's")
+    out["flat_ms"] = device_ms(lambda: flat_topk_cuda(
+        qb, corpus, kb, metric="cosine", corpus_valid=valid,
+        precision="default"), reps=5)
+    out["flat_plain_ms"] = device_ms(lambda: flat_topk_plain(
+        qb, corpus, kb, metric="cosine", corpus_valid=valid,
+        precision="default"), reps=3)
+    out["flat_library_ms"] = device_ms(lambda: library(qb), reps=3)
+    d64 = corpus.shape[1]
+    out["flat_bound_ms"], out["flat_bound_by"] = bound(
+        2.0 * qb.shape[0] * n * d64, "bf16",
+        4.0 * (n + qb.shape[0]) * d64 + n + 8.0 * qb.shape[0] * kb)
+    del kd, ki, pd, pi, lib_d, c16, inv
+    torch.cuda.empty_cache()
+
+    qc = torch.from_numpy(emb[qrows]).cuda()
+    pool = index._routing_pool()
+    sel = _route(qc, pool, index._pool_vecs(pool), index.metric,
+                 index.route_entries)
+    picks = sel
+    packed = index._maybe_packed()
+    check(packed is not None and packed.shape[1:] == (index.m0, d64),
+          "the output index's packed table was not built")
+    kdot, knorm = gather_block_dots_cuda(qc, picks, packed)
+    torch.cuda.synchronize()
+    pdot, pnorm = gather_block_dots_plain(qc, picks, packed)
+    torch.testing.assert_close(kdot, pdot, rtol=TOL, atol=TOL)
+    torch.testing.assert_close(knorm, pnorm, rtol=TOL, atol=TOL)
+    out["beam_max_abs_err"] = max(float((kdot - pdot).abs().max()),
+                                  float((knorm - pnorm).abs().max()))
+    out["beam_ms"] = device_ms(lambda: gather_block_dots_cuda(qc, picks, packed),
+                               reps=20)
+    out["beam_plain_ms"] = device_ms(lambda: gather_block_dots_plain(
+        qc, picks, packed))
+    live = int((picks >= 0).sum())
+    out["beam_shape"] = [qc.shape[0], picks.shape[1], *packed.shape[1:]]
+    out["beam_bound_ms"], out["beam_bound_by"] = bound(
+        4.0 * live * packed.shape[1] * d64, "fp32",
+        live * packed.shape[1] * d64 * packed.element_size() + qc.numel() * 4
+        + picks.numel() * 4 + 2 * picks.numel() * packed.shape[1] * 4)
+    print(f"  flat_topk at the HNSW bulk build's call, [8192, {d64}] x"
+          f" [{n}, {d64}] bf16, k={kb}: kernel {out['flat_ms']:.3f} ms, plain"
+          f" {out['flat_plain_ms']:.3f} ms, library {out['flat_library_ms']:.3f}"
+          f" ms; bound {out['flat_bound_ms']:.4f} ms ({out['flat_bound_by']});"
+          f" max |d| error {out['flat_max_abs_err']:.3g}; gather_block_dots at"
+          f" {out['beam_shape']} bf16: kernel {out['beam_ms']:.4f} ms, plain"
+          f" {out['beam_plain_ms']:.4f} ms; bound {out['beam_bound_ms']:.4f} ms"
+          f" ({out['beam_bound_by']})", flush=True)
+    del index, g, emb, qc, picks, packed, corpus, valid
+    torch.cuda.empty_cache()
+    out["phase_s"] = time.perf_counter() - t_phase
     return out
 
 
@@ -2547,6 +3140,11 @@ def main() -> int:
     graph18 = graph_analytics_phase()
     print(json.dumps({"graph_analytics": graph18}))
 
+    # 19. Node2Vec at BASELINE.json configs[3], its embeddings indexed into
+    # HnswIndex (no kernel of its own; the index's two at d = 64)
+    n2v19 = node2vec_phase()
+    print(json.dumps({"node2vec": n2v19}))
+
     print(json.dumps({"kernels": [{
         "name": "flat_topk",
         "route": "cuda",
@@ -2593,6 +3191,13 @@ def main() -> int:
         "library_ms_wave": wave_library_ms,
         "launches_ivf_search": ivf16["launches"]["flat_topk_mma"],
         "max_abs_err_ivf_probe": ivf16["probe_err"],
+        "launches_node2vec_hnsw_build": n2v19["launches"]["flat_topk_mma"],
+        "max_abs_err_n2v_build": n2v19["flat_max_abs_err"],
+        "ms_n2v_build": n2v19["flat_ms"],
+        "plain_ms_n2v_build": n2v19["flat_plain_ms"],
+        "bound_ms_n2v_build": n2v19["flat_bound_ms"],
+        "bound_by_n2v_build": n2v19["flat_bound_by"],
+        "library_ms_n2v_build": n2v19["flat_library_ms"],
         "ms_ivf_probe": ivf16["probe_ms"],
         "plain_ms_ivf_probe": ivf16["probe_plain_ms"],
         "bound_ms_ivf_probe": ivf16["probe_bound_ms"],
@@ -2645,6 +3250,12 @@ def main() -> int:
         "bound_ms_ivf_int8": ivf16["beam_bound_ms_int8"],
         "bound_by_ivf_int8": ivf16["beam_bound_by_int8"],
         "bound_ms_ivf_per_pick_int8": ivf16["beam_bound_ms_per_pick_int8"],
+        "launches_n2v_self_search": n2v19["search_launches"]["beam_dots"],
+        "max_abs_err_n2v": n2v19["beam_max_abs_err"],
+        "ms_n2v": n2v19["beam_ms"],
+        "plain_ms_n2v": n2v19["beam_plain_ms"],
+        "bound_ms_n2v": n2v19["beam_bound_ms"],
+        "bound_by_n2v": n2v19["beam_bound_by"],
     }, {
         "name": "beam_topm",
         "route": "cuda",

@@ -39,6 +39,11 @@ reference. So far it carries:
   block-granular checkpoints in the JAX package's format);
   ``graph.convert`` carries a graph's or a cache's state across from
   either package;
+- Node2Vec: ``node2vec_train`` (``models/node2vec.py``), p/q-biased walks
+  and SGNS on the graph's device (plain torch: the JAX package has no
+  Pallas kernel there), or the host engine's trainer below
+  ``graph.routing``'s measured crossover; the embeddings go into an
+  ``HnswIndex`` or ``FlatIndex`` when one is given;
 - ``pairwise_distances`` (``ops.distance``).
 
 Indexes and graphs live on the card (``device="cuda"``) unless the caller
@@ -47,7 +52,7 @@ kernel; on the CPU it runs its plain PyTorch version. The package imports
 ``torch`` and numpy, never ``jax`` and never ``muninn_tpu``.
 """
 
-__version__ = "0.8.0"
+__version__ = "0.9.0"
 
 from muninn_tpu_torch.ops.distance import (  # noqa: F401
     Metric,
@@ -58,7 +63,8 @@ from muninn_tpu_torch.index.flat import FlatIndex, QuantizedFlatIndex  # noqa: F
 from muninn_tpu_torch.index.hnsw import HnswIndex  # noqa: F401
 from muninn_tpu_torch.index.ivf import IvfIndex  # noqa: F401
 from muninn_tpu_torch.graph import Graph, GraphCache, select  # noqa: F401
+from muninn_tpu_torch.models.node2vec import node2vec_train  # noqa: F401
 
 __all__ = ["Metric", "parse_metric", "pairwise_distances", "FlatIndex",
            "QuantizedFlatIndex", "HnswIndex", "IvfIndex", "Graph",
-           "GraphCache", "select", "__version__"]
+           "GraphCache", "select", "node2vec_train", "__version__"]

@@ -16,9 +16,10 @@ HBM3 at a 700 W power limit: the traversal and PageRank costs by
 ``chip_smoke.py`` phase 17 and ``tools/probes/graph_probe.py`` at 1M nodes
 x 10M edges, their ceilings from the host-against-device times of both at
 5k to 5M edges; centrality's and Leiden's by ``graph_probe.py
---analytics`` and phase 18, as their comments say.
-Setting ``MUNINN_HOST_GRAPH_SECONDS`` makes its value every operation's
-ceiling.
+--analytics`` and phase 18, node2vec's by ``tools/probes/node2vec_probe.py``,
+as their comments say.
+Setting ``MUNINN_HOST_GRAPH_SECONDS`` makes its value every graph
+operation's ceiling; node2vec's is ``MUNINN_HOST_N2V_SECONDS``, as in JAX.
 """
 
 from __future__ import annotations
@@ -96,6 +97,25 @@ COST_LEIDEN_EDGE = 1.94e-6
 # - Leiden's crossover: 66 ms host against 370 device at 10k x 50k (100k
 #   both-direction edges), 1.40 s against 0.44 at 100k x 500k: near 320k.
 HOST_SECONDS_LEIDEN = _ceiling(COST_LEIDEN_EDGE * 320_000)
+
+# node2vec (``tools/probes/node2vec_probe.py``, NVIDIA H100 80GB HBM3,
+# 700 W, one run; ``chip_smoke.py`` phase 19 repeats two points) at the
+# node2vec treatment's settings (Erdos-Renyi at mean degree 5, dim 32, 2
+# walks of 20 a node, 1 epoch, walker batches of 1,024; 76,800 units a
+# node): the host trainer's cost per (pair x dim) unit of
+# ``models.node2vec.host_estimate_s`` was 0.66, 1.30, 1.00, 0.75, 1.07,
+# 1.38, 1.34 and 1.70 ns at 500, 1k, 2k, 4k, 8k, 16k, 32k and 64k nodes,
+# taken at the largest
+COST_SGNS_PAIR_DIM = 1.70e-9
+# - the crossover, host against device ms: 25 against 78 at 500 nodes, 100
+#   against 78 at 1k, 153 against 125 at 2k, 230 against 239 at 4k, 654
+#   against 528 at 8k, 8,361 against 4,331 at 64k: within 25% of each
+#   other from 1k to 4k, the device ahead from 8k. The ceiling sits at 4k
+#   nodes, keeping the treatment's own points (up to 2k, the reference's
+#   envelope) on the host engine, whose runs repeat to the bit.
+#   ``MUNINN_HOST_N2V_SECONDS`` overrides it, as in JAX.
+HOST_N2V_SECONDS = float(os.environ.get(
+    "MUNINN_HOST_N2V_SECONDS", COST_SGNS_PAIR_DIM * 76_800 * 4_000))
 
 
 def use_host(backend: str, host_seconds: float,
