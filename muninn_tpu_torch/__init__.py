@@ -44,7 +44,10 @@ reference. So far it carries:
   Pallas kernel there), or the host engine's trainer below
   ``graph.routing``'s measured crossover; the embeddings go into an
   ``HnswIndex`` or ``FlatIndex`` when one is given;
-- ``pairwise_distances`` (``ops.distance``).
+- ``pairwise_distances`` (``ops.distance``);
+- ``tracing``: spans of every index's ``search`` (recorded only under
+  ``torch.profiler``, as ``muninn:`` ranges too) and the counters of kernel
+  launches and host reads.
 
 Indexes and graphs live on the card (``device="cuda"``) unless the caller
 passes ``device="cpu"``. On a CUDA device every kernel wrapper launches its

@@ -108,7 +108,7 @@ def _fixpoint(step, init: torch.Tensor, max_iters: int) -> torch.Tensor:
         moved = ((new - x).abs() > 1e-6).any(dim=1)
         x = torch.where(live[:, None], new, x)
         live &= moved
-        if not trv._go_on("brandes", live.any()):
+        if not trv.host_read("brandes", live.any()):
             break
     return x
 

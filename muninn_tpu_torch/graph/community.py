@@ -163,7 +163,7 @@ def _local_moving(
         fallback[torch.argmax(torch.where(movable, gain, -torch.inf))] = True
         apply = torch.where(apply.any(), apply, fallback & movable)
         comm = torch.where(apply, tgt, comm)
-        if not trv._go_on("leiden", movable.any()):
+        if not trv.host_read("leiden", movable.any()):
             break
     return comm
 

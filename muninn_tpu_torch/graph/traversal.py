@@ -16,8 +16,9 @@ direction ``d`` the pull CSR is the OPPOSITE direction's CSR (its rows are
 the pull targets, its ``dst`` the source endpoints).
 
 Each fixpoint runs one sweep per step on the tensors' device and reads one
-host boolean per sweep to decide whether to go on; ``HOST_SYNCS`` counts
-those reads per fixpoint (``centrality``'s sigma and delta sweeps and
+host boolean per sweep to decide whether to go on, through
+``tracing.host_read``; ``HOST_SYNCS`` (the registry's dict) counts those
+reads per fixpoint (``centrality``'s sigma and delta sweeps and
 ``community``'s local-moving sweeps count theirs here too). (The JAX
 package splits its loops into blocks of a few sweeps per dispatch, and
 edges into chunks above 2**25, for limits of its TPU worker; the results
@@ -30,25 +31,13 @@ import numpy as np
 import torch
 
 from muninn_tpu_torch.ops.segments import seg_ids, seg_min_by_ids
+from muninn_tpu_torch.tracing import (  # noqa: F401
+    HOST_SYNCS,
+    host_read,
+    reset_host_syncs,
+)
 
 INT_INF = 2**30
-
-#: host reads of a fixpoint's "go on" flag, by fixpoint; a caller resets
-#: it with :func:`reset_host_syncs` and reads it after the run
-HOST_SYNCS: dict[str, int] = {"bfs": 0, "seeded_bfs": 0,
-                              "multi_source": 0, "components": 0,
-                              "sssp": 0, "brandes": 0, "leiden": 0}
-
-
-def reset_host_syncs() -> None:
-    for name in HOST_SYNCS:
-        HOST_SYNCS[name] = 0
-
-
-def _go_on(name: str, flag: torch.Tensor) -> bool:
-    """Read a fixpoint's 0-d "go on" flag on the host, counted."""
-    HOST_SYNCS[name] += 1
-    return bool(flag)
 
 
 def bfs_pull(
@@ -81,7 +70,7 @@ def bfs_pull(
         depth = torch.where(reach, d + 1, depth)
         parent = torch.where(reach, best_pred, parent)
         d += 1
-        if not _go_on("bfs", reach.any()):
+        if not host_read("bfs", reach.any()):
             break
     return depth, parent
 
@@ -111,7 +100,7 @@ def seeded_bfs_depths_pull(
             dist, seg_min_by_ids(relax, ids, num_nodes, INT_INF))
         changed = (new < dist).any()
         dist = new
-        if not _go_on("seeded_bfs", changed):
+        if not host_read("seeded_bfs", changed):
             break
     return dist
 
@@ -142,7 +131,7 @@ def multi_source_distances_pull(
             dist, seg_min_by_ids(relax, ids, num_nodes, torch.inf))
         changed = (new < dist).any()
         dist = new
-        if not _go_on("multi_source", changed):
+        if not host_read("multi_source", changed):
             break
     return dist
 
@@ -184,7 +173,7 @@ def connected_components_pull(
     comp = torch.arange(num_nodes, dtype=torch.int32, device=offsets.device)
     while True:
         comp, changed = _label_sweep(comp, nbr_min)
-        if not _go_on("components", changed):
+        if not host_read("components", changed):
             return comp
 
 
@@ -207,7 +196,7 @@ def connected_components_2csr(
     while True:
         comp, changed = _label_sweep(
             comp, lambda c: torch.minimum(fwd_min(c), rev_min(c)))
-        if not _go_on("components", changed):
+        if not host_read("components", changed):
             return comp
 
 
@@ -237,7 +226,7 @@ def sssp_with_parents_pull(
             dist, seg_min_by_ids(relax, ids, num_nodes, torch.inf))
         changed = (new < dist).any()
         dist = new
-        if not _go_on("sssp", changed):
+        if not host_read("sssp", changed):
             break
     # tight edges: dist[esrc] + w == dist[v] (epsilon like the reference's
     # tie detection, src/graph_centrality.c:212-214); v = each edge's pull

@@ -37,6 +37,7 @@ from muninn_tpu_torch.ops.flat_topk import (
     proj_candidates,
     rescore,
 )
+from muninn_tpu_torch.tracing import host_read, request, span
 
 PRECISIONS = ("highest", "default", "bfloat16", "int8_rescored",
               "proj_rescored")
@@ -75,7 +76,11 @@ def pick_rescore_r(
 
 
 def _query_tensor(queries, dim: int, device: torch.device) -> torch.Tensor:
-    q = torch.as_tensor(queries, dtype=torch.float32, device=device)
+    """The queries as an f32 ``[B, d]`` tensor on ``device`` (a copy to the
+    card from host memory)."""
+    with span("index.upload") as sp:
+        q = torch.as_tensor(queries, dtype=torch.float32, device=device)
+        sp.set(bytes=q.numel() * 4)
     if q.ndim == 1:
         q = q[None, :]
     if q.shape[1] != dim:
@@ -83,13 +88,18 @@ def _query_tensor(queries, dim: int, device: torch.device) -> torch.Tensor:
     return q
 
 
-def _search_ids(index, queries, k: int):
-    """``search`` of either index: external ids and distances as numpy, a
-    single query as 1-D arrays."""
+def _search_ids(index, queries, k: int, *args):
+    """``search`` of every index (``args`` go to its ``search_device``):
+    external ids and distances as numpy, a single query as 1-D arrays; one
+    request of the span tree."""
     single = np.ndim(queries) == 1
-    d, slots = index.search_device(queries, k)
-    ids = index.store.ids_of(slots.cpu().numpy())
-    d = d.cpu().numpy()
+    with request("index.search", queries=1 if single else len(queries)):
+        d, slots = index.search_device(queries, k, *args)
+        with span("index.download") as sp:
+            slots = host_read("download", slots)
+            d = host_read("download", d)
+            sp.set(bytes=slots.nbytes + d.nbytes)
+        ids = index.store.ids_of(slots)
     if single:
         return ids[0], d[0]
     return ids, d
@@ -246,17 +256,22 @@ class FlatIndex:
 
         Returns ``(dists f32 [B, k], slots int32 [B, k])`` tensors in slot
         space (``self.store.ids_of`` maps them to external ids)."""
-        q = _query_tensor(queries, self.dim, self.device)
-        hw, corpus, valid = self._live()
-        if self.precision in _RESCORED:
-            if self.metric is Metric.L2:
-                raise ValueError(
-                    f"{self.precision} supports cosine/inner_product"
-                )
-            cand = self._retrieve(q, corpus, valid, hw, max(self.rescore_r, k))
-            return rescore(q, corpus, cand, k, self.metric)
-        return flat_topk(q, corpus, k, metric=self.metric,
-                         corpus_valid=valid, precision=self.precision)
+        with span("index.search_device"):
+            q = _query_tensor(queries, self.dim, self.device)
+            hw, corpus, valid = self._live()
+            if self.precision in _RESCORED:
+                if self.metric is Metric.L2:
+                    raise ValueError(
+                        f"{self.precision} supports cosine/inner_product"
+                    )
+                r = max(self.rescore_r, k)
+                with span("ops.int8_retrieve", rows=hw, r=r):
+                    cand = self._retrieve(q, corpus, valid, hw, r)
+                with span("ops.rescore", rows=q.shape[0], k=k):
+                    return rescore(q, corpus, cand, k, self.metric)
+            with span("ops.flat_topk", rows=hw, k=k):
+                return flat_topk(q, corpus, k, metric=self.metric,
+                                 corpus_valid=valid, precision=self.precision)
 
     def search(self, queries, k: int = 10):
         """Batched KNN. queries [B, d] (or [d]); returns
@@ -312,12 +327,13 @@ class QuantizedFlatIndex:
     def search_device(self, queries, k: int = 10):
         """Top-k left on the device in slot space, as
         ``FlatIndex.search_device``."""
-        q = _query_tensor(queries, self.dim, self.device)
-        hw = max(self.store.high_watermark, 1)
-        return flat_topk_int8(
-            q, self.store.vectors[:hw], self.store.scales[:hw], k,
-            metric=self.metric, corpus_valid=self.store.valid[:hw],
-        )
+        with span("index.search_device"):
+            q = _query_tensor(queries, self.dim, self.device)
+            hw = max(self.store.high_watermark, 1)
+            return flat_topk_int8(
+                q, self.store.vectors[:hw], self.store.scales[:hw], k,
+                metric=self.metric, corpus_valid=self.store.valid[:hw],
+            )
 
     def search(self, queries, k: int = 10):
         """Batched KNN; the result contract of ``FlatIndex.search``."""

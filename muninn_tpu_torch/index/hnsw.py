@@ -56,6 +56,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from muninn_tpu_torch.index.flat import _query_tensor, _search_ids
 from muninn_tpu_torch.index.store import VectorStore
 from muninn_tpu_torch.ops.beam import (
     BIG,
@@ -80,6 +81,7 @@ from muninn_tpu_torch.ops.topk import (
     smallest_k,
     sorted_topk_unique,
 )
+from muninn_tpu_torch.tracing import host_read, span
 
 HNSW_MAX_LEVELS = 32  # the reference's cap, src/hnsw_algo.h:14
 _SWEEP_ROWS = 8192    # rows per chunk of the bulk kNN sweep and the prune
@@ -193,103 +195,116 @@ def _beam_search_level0(
     run over ``E * topm`` candidates; ``topm == R0`` gives the dots path's
     beam. Returns ``(beam_dists [B, ef], beam_slots [B, ef] int32)``,
     ascending."""
-    b = queries.shape[0]
-    dev = queries.device
-    r0 = neighbors0.shape[1]
-    expand = min(expand, ef)
-    if patience <= 0:
-        patience = max(ef // 4, 10)  # counted in expansions
-    if max_iters <= 0:
-        max_iters = 2 * (ef // expand + 1) + patience // expand + 8
-    use_topm = packed is not None and topm > 0 and pscales is None
+    with span("hnsw.beam", rows=queries.shape[0]) as beam:
+        b = queries.shape[0]
+        dev = queries.device
+        r0 = neighbors0.shape[1]
+        expand = min(expand, ef)
+        if patience <= 0:
+            patience = max(ef // 4, 10)  # counted in expansions
+        if max_iters <= 0:
+            max_iters = 2 * (ef // expand + 1) + patience // expand + 8
+        use_topm = packed is not None and topm > 0 and pscales is None
 
-    qf = queries.float()
-    qn2 = squared_norms(qf)[:, None]
+        qf = queries.float()
+        qn2 = squared_norms(qf)[:, None]
 
-    def fetch(idx):
-        v = vectors[idx]
-        if scales is not None:
-            v = v.float() * scales[idx][..., None]
-        return v
+        def fetch(idx):
+            v = vectors[idx]
+            if scales is not None:
+                v = v.float() * scales[idx][..., None]
+            return v
 
-    if entry.ndim == 1:
-        entry = entry[:, None]
-    r_ent = entry.shape[1]
-    e_d = gathered_distances(qf, fetch(entry.clamp(min=0).long()), metric)
-    beam_d = torch.full((b, ef), _INF, device=dev)
-    beam_i = torch.full((b, ef), -1, dtype=torch.int32, device=dev)
-    beam_d[:, :r_ent] = torch.where(entry >= 0, e_d, _INF)
-    beam_i[:, :r_ent] = entry
-    expanded = torch.zeros((b, ef), dtype=torch.bool, device=dev)
-    stall = torch.zeros(b, dtype=torch.int64, device=dev)
-    c = expand * (topm if use_topm else r0)
-    earlier = torch.ones((c, c), dtype=torch.bool, device=dev).tril(-1)
+        if entry.ndim == 1:
+            entry = entry[:, None]
+        r_ent = entry.shape[1]
+        e_d = gathered_distances(qf, fetch(entry.clamp(min=0).long()), metric)
+        beam_d = torch.full((b, ef), _INF, device=dev)
+        beam_i = torch.full((b, ef), -1, dtype=torch.int32, device=dev)
+        beam_d[:, :r_ent] = torch.where(entry >= 0, e_d, _INF)
+        beam_i[:, :r_ent] = entry
+        expanded = torch.zeros((b, ef), dtype=torch.bool, device=dev)
+        stall = torch.zeros(b, dtype=torch.int64, device=dev)
+        c = expand * (topm if use_topm else r0)
+        earlier = torch.ones((c, c), dtype=torch.bool, device=dev).tril(-1)
 
-    for _ in range(max_iters):
-        has_unexpanded = ((~expanded) & (beam_i >= 0)).any(dim=1)
-        if not bool((has_unexpanded & (stall < patience)).any()):
-            break
-        # the best `expand` unexpanded entries of each query
-        cand_d = torch.where(expanded | (beam_i < 0), _INF, beam_d)
-        pick_d, pick = smallest_k(cand_d, expand)
-        pick_i = torch.gather(beam_i, 1, pick)
-        pick_valid = pick_d < _INF
-        live = pick_valid.any(dim=1) & (stall < patience)
-        do = pick_valid & live[:, None]
-        expanded = expanded | torch.zeros_like(expanded).scatter(1, pick, do)
-        # dead picks ride as -1: the kernels skip their blocks
-        live_picks = torch.where(do, pick_i, -1)
+        steps = 0  # loop iterations entered, each one host read
+        for step in range(max_iters):
+            with span("hnsw.beam_step", step=step):
+                has_unexpanded = ((~expanded) & (beam_i >= 0)).any(dim=1)
+                steps += 1
+                with span("hnsw.step_read"):
+                    go_on = host_read("hnsw_beam",
+                                      (has_unexpanded & (stall < patience)).any())
+                if not go_on:
+                    break
+                # the best `expand` unexpanded entries of each query
+                cand_d = torch.where(expanded | (beam_i < 0), _INF, beam_d)
+                pick_d, pick = smallest_k(cand_d, expand)
+                pick_i = torch.gather(beam_i, 1, pick)
+                pick_valid = pick_d < _INF
+                live = pick_valid.any(dim=1) & (stall < patience)
+                do = pick_valid & live[:, None]
+                expanded = expanded | torch.zeros_like(expanded).scatter(
+                    1, pick, do)
+                # dead picks ride as -1: the kernels skip their blocks
+                live_picks = torch.where(do, pick_i, -1)
 
-        nbrs = neighbors0[pick_i.clamp(min=0).long()].reshape(b, expand * r0)
-        nbrs = torch.where(do.repeat_interleave(r0, dim=1), nbrs, -1)
-        # dedup by equality: drop candidates already in the beam and
-        # repeats within this step (the first occurrence stays)
-        beam_cmp = torch.where(beam_i < 0, -2, beam_i)
-        in_beam = (nbrs[:, :, None] == beam_cmp[:, None, :]).any(dim=2)
+                nbrs = neighbors0[pick_i.clamp(min=0).long()].reshape(
+                    b, expand * r0)
+                nbrs = torch.where(do.repeat_interleave(r0, dim=1), nbrs, -1)
+                # dedup by equality: drop candidates already in the beam and
+                # repeats within this step (the first occurrence stays)
+                beam_cmp = torch.where(beam_i < 0, -2, beam_i)
+                in_beam = (nbrs[:, :, None] == beam_cmp[:, None, :]).any(dim=2)
 
-        if use_topm:
-            pen = torch.where(in_beam | (nbrs < 0), BIG, 0.0)
-            md, ml = gather_block_topm(qf, live_picks, packed, pen, metric, topm)
-            nd = md.reshape(b, c)
-            sel = torch.gather(nbrs.reshape(b, expand, r0), 2, ml.long())
-            nbrs = torch.where(nd < 1.0e38, sel.reshape(b, c), -1)
-            drop = torch.zeros((b, c), dtype=torch.bool, device=dev)
-        else:
-            drop = in_beam
-            if packed is not None:
-                dots, cn2 = gather_block_dots(qf, live_picks, packed)
-                if pscales is not None:
-                    ps = pscales[pick_i.clamp(min=0).long()].reshape(b, c)
-                    dots = dots * ps
-                    cn2 = cn2 * ps * ps
-                nd = packed_distances(dots, cn2, qn2, metric)
-            else:
-                nd = gathered_distances(qf, fetch(nbrs.clamp(min=0).long()),
-                                        metric)
-        if dedup:
-            drop = drop | ((nbrs[:, :, None] == nbrs[:, None, :]) & earlier).any(dim=2)
-        nbrs = torch.where(drop, -1, nbrs)
-        nd = torch.where(nbrs >= 0, nd, _INF)
+                if use_topm:
+                    pen = torch.where(in_beam | (nbrs < 0), BIG, 0.0)
+                    md, ml = gather_block_topm(qf, live_picks, packed, pen,
+                                               metric, topm)
+                    nd = md.reshape(b, c)
+                    sel = torch.gather(nbrs.reshape(b, expand, r0), 2, ml.long())
+                    nbrs = torch.where(nd < 1.0e38, sel.reshape(b, c), -1)
+                    drop = torch.zeros((b, c), dtype=torch.bool, device=dev)
+                else:
+                    drop = in_beam
+                    if packed is not None:
+                        dots, cn2 = gather_block_dots(qf, live_picks, packed)
+                        if pscales is not None:
+                            ps = pscales[pick_i.clamp(min=0).long()].reshape(
+                                b, c)
+                            dots = dots * ps
+                            cn2 = cn2 * ps * ps
+                        nd = packed_distances(dots, cn2, qn2, metric)
+                    else:
+                        nd = gathered_distances(
+                            qf, fetch(nbrs.clamp(min=0).long()), metric)
+                if dedup:
+                    drop = drop | ((nbrs[:, :, None] == nbrs[:, None, :])
+                                   & earlier).any(dim=2)
+                nbrs = torch.where(drop, -1, nbrs)
+                nd = torch.where(nbrs >= 0, nd, _INF)
 
-        # merge: one top-ef over [beam | fresh candidates]
-        cat_d = torch.cat([beam_d, nd], dim=1)
-        cat_i = torch.cat([beam_i, nbrs], dim=1)
-        cat_f = torch.cat([expanded, torch.zeros_like(nbrs, dtype=torch.bool)],
-                          dim=1)
-        new_d, pos = smallest_k(cat_d, ef)
-        new_i = torch.gather(cat_i, 1, pos)
-        new_f = torch.gather(cat_f, 1, pos)
-        new_i = torch.where(torch.isinf(new_d), -1, new_i)
-        new_f = new_f & (new_i >= 0)
-        # an expansion improves when the beam's tail tightens or the beam
-        # is still filling (src/hnsw_algo.c:368-392)
-        improved = (new_d[:, ef - 1] < beam_d[:, ef - 1]) | (
-            (new_i >= 0).sum(dim=1) > (beam_i >= 0).sum(dim=1)
-        )
-        stall = torch.where(
-            live, torch.where(improved, 0, stall + do.sum(dim=1)), stall
-        )
-        beam_d, beam_i, expanded = new_d, new_i, new_f
+                # merge: one top-ef over [beam | fresh candidates]
+                cat_d = torch.cat([beam_d, nd], dim=1)
+                cat_i = torch.cat([beam_i, nbrs], dim=1)
+                cat_f = torch.cat(
+                    [expanded, torch.zeros_like(nbrs, dtype=torch.bool)], dim=1)
+                new_d, pos = smallest_k(cat_d, ef)
+                new_i = torch.gather(cat_i, 1, pos)
+                new_f = torch.gather(cat_f, 1, pos)
+                new_i = torch.where(torch.isinf(new_d), -1, new_i)
+                new_f = new_f & (new_i >= 0)
+                # an expansion improves when the beam's tail tightens or the
+                # beam is still filling (src/hnsw_algo.c:368-392)
+                improved = (new_d[:, ef - 1] < beam_d[:, ef - 1]) | (
+                    (new_i >= 0).sum(dim=1) > (beam_i >= 0).sum(dim=1)
+                )
+                stall = torch.where(
+                    live, torch.where(improved, 0, stall + do.sum(dim=1)), stall
+                )
+                beam_d, beam_i, expanded = new_d, new_i, new_f
+        beam.set(steps=steps)
     return beam_d, beam_i
 
 
@@ -298,9 +313,10 @@ def _route(q: torch.Tensor, pool: torch.Tensor, pv: torch.Tensor,
     """Exact routing: the ``r`` nearest promoted slots of each query
     (``flat_topk`` at ``precision="default"`` over the pooled rows), -1
     where the pool has fewer."""
-    _, sel = flat_topk(q, pv, r, metric=metric, precision="default",
-                       corpus_valid=pool >= 0)
-    return torch.where(sel >= 0, pool[sel.clamp(min=0).long()], -1)
+    with span("hnsw.route", rows=q.shape[0]):
+        _, sel = flat_topk(q, pv, r, metric=metric, precision="default",
+                           corpus_valid=pool >= 0)
+        return torch.where(sel >= 0, pool[sel.clamp(min=0).long()], -1)
 
 
 def _rescore_topk(q: torch.Tensor, vectors: torch.Tensor, valid: torch.Tensor,
@@ -308,10 +324,11 @@ def _rescore_topk(q: torch.Tensor, vectors: torch.Tensor, valid: torch.Tensor,
     """Soft-delete filter, exact f32 rescore of the beam's rows, top-k: the
     bf16 (or int8) beam decides which rows, the f32 store their
     distances."""
-    ok = (beam_i >= 0) & valid[beam_i.clamp(min=0).long()]
-    beam_i = torch.where(ok, beam_i, -1)
-    d = gathered_distances(q, vectors[beam_i.clamp(min=0).long()], metric)
-    return sorted_topk_unique(torch.where(ok, d, _INF), beam_i, k)
+    with span("hnsw.rescore", rows=q.shape[0]):
+        ok = (beam_i >= 0) & valid[beam_i.clamp(min=0).long()]
+        beam_i = torch.where(ok, beam_i, -1)
+        d = gathered_distances(q, vectors[beam_i.clamp(min=0).long()], metric)
+        return sorted_topk_unique(torch.where(ok, d, _INF), beam_i, k)
 
 
 def _search_topk_fused(
@@ -375,8 +392,9 @@ def _search_topk_whole(
     init_i = torch.full((b, ef), -1, dtype=torch.int32, device=dev)
     init_d[:, : entries.shape[1]] = torch.where(entries >= 0, e_d, _INF)
     init_i[:, : entries.shape[1]] = entries
-    _, beam_i = beam_loop(q, init_d, init_i, packed, neighbors0, metric, ef,
-                          expand, patience, max_iters, pick_xfer)
+    with span("hnsw.beam_whole", rows=b):
+        _, beam_i = beam_loop(q, init_d, init_i, packed, neighbors0, metric,
+                              ef, expand, patience, max_iters, pick_xfer)
     return _rescore_topk(q, vectors, valid, beam_i, metric, k)
 
 
@@ -699,41 +717,34 @@ class HnswIndex:
         """Top-k with the results left on the index's device, in slot space:
         ``(dists f32 [B, k], slots int32 [B, k])`` tensors
         (``self.store.ids_of`` maps them to external ids)."""
-        q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
-        if q.ndim == 1:
-            q = q[None, :]
-        if q.shape[1] != self.dim:
-            raise ValueError(f"query dim {q.shape[1]} != index dim {self.dim}")
-        if ef_search is None:
-            ef_search = 2 * k
-        ef = max(ef_search, k)
-        b = q.shape[0]
-        if self.entry_point < 0:
-            return (torch.full((b, k), _INF, device=self.device),
-                    torch.full((b, k), -1, dtype=torch.int32,
-                               device=self.device))
-        hw = self.store.high_watermark
-        if hw <= self.exact_small_n:
-            return flat_topk(
-                q, self.store.vectors[:hw], k, metric=self.metric,
-                corpus_valid=self.store.valid[:hw], precision="highest",
-            )
-        if self.search_bf16 and self._routing_pool() is not None:
-            return self._search_topk_chunked(q, k, ef)
-        beam_d, beam_i = self._search_slots_chunked(q, ef)
-        ok = (beam_i >= 0) & self.store.valid[beam_i.clamp(min=0).long()]
-        return sorted_topk_unique(torch.where(ok, beam_d, _INF),
-                                  torch.where(ok, beam_i, -1), k)
+        with span("index.search_device"):
+            q = _query_tensor(queries, self.dim, self.device)
+            if ef_search is None:
+                ef_search = 2 * k
+            ef = max(ef_search, k)
+            b = q.shape[0]
+            if self.entry_point < 0:
+                return (torch.full((b, k), _INF, device=self.device),
+                        torch.full((b, k), -1, dtype=torch.int32,
+                                   device=self.device))
+            hw = self.store.high_watermark
+            if hw <= self.exact_small_n:
+                return flat_topk(
+                    q, self.store.vectors[:hw], k, metric=self.metric,
+                    corpus_valid=self.store.valid[:hw], precision="highest",
+                )
+            if self.search_bf16 and self._routing_pool() is not None:
+                return self._search_topk_chunked(q, k, ef)
+            beam_d, beam_i = self._search_slots_chunked(q, ef)
+            ok = (beam_i >= 0) & self.store.valid[beam_i.clamp(min=0).long()]
+            return sorted_topk_unique(torch.where(ok, beam_d, _INF),
+                                      torch.where(ok, beam_i, -1), k)
 
     def search(self, queries, k: int = 10, ef_search: int | None = None):
         """Batched KNN. Returns ``(ids int64 [B, k], dists f32 [B, k])``
         numpy arrays, ascending; empty slots are (-1, inf). A single query
         gives 1-D arrays."""
-        single = np.ndim(queries) == 1
-        d, slots = self.search_device(queries, k, ef_search)
-        ids = self.store.ids_of(slots.cpu().numpy())
-        d = d.cpu().numpy()
-        return (ids[0], d[0]) if single else (ids, d)
+        return _search_ids(self, queries, k, ef_search)
 
     def _int8_guidance(self) -> bool:
         """Whether the beam is guided by int8 rows; a ``search_quant``
@@ -826,11 +837,15 @@ class HnswIndex:
         b = q.shape[0]
         chunk = int(max(1024, min(8192, (1 << 29) // max(self.store.capacity, 1))))
         if b <= chunk:
-            return one(q)
+            with span("hnsw.chunk", rows=b):
+                return one(q)
         n_chunks = -(-b // chunk)
         chunk = -(-(-(-b // n_chunks)) // 256) * 256
         qp = torch.nn.functional.pad(q, (0, 0, 0, n_chunks * chunk - b))
-        parts = [one(qp[s : s + chunk]) for s in range(0, qp.shape[0], chunk)]
+        parts = []
+        for s in range(0, qp.shape[0], chunk):
+            with span("hnsw.chunk", rows=chunk):
+                parts.append(one(qp[s : s + chunk]))
         return (torch.cat([p[0] for p in parts])[:b],
                 torch.cat([p[1] for p in parts])[:b])
 

@@ -44,6 +44,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from muninn_tpu_torch.index.flat import _query_tensor, _search_ids
 from muninn_tpu_torch.index.store import VectorStore
 from muninn_tpu_torch.ops.beam import gather_block_dots, packed_distances
 from muninn_tpu_torch.ops.distance import (
@@ -60,6 +61,7 @@ from muninn_tpu_torch.ops.topk import (
     smallest_k_select,
     sorted_topk_unique,
 )
+from muninn_tpu_torch.tracing import span
 
 _INF = float("inf")
 QUANTS = ("bf16", "int8")
@@ -596,46 +598,37 @@ class IvfIndex:
         """Top-k with the results left on the index's device, in slot space:
         ``(dists f32 [B, k], slots int32 [B, k])``, ascending, ``(inf, -1)``
         padded."""
-        q = torch.as_tensor(queries, dtype=torch.float32, device=self.device)
-        if q.ndim == 1:
-            q = q[None, :]
-        if q.shape[1] != self.dim:
-            raise ValueError(f"query dim {q.shape[1]} != index dim {self.dim}")
-        if self.centroids is None:  # unbuilt: exact scan of every stored row
-            hw = max(self.store.high_watermark, 1)
-            return self._exact_region(
-                q, torch.arange(hw, device=self.device), k)
-        p = min(nprobe or self.nprobe, self.nlist)
-        r = min(max(self.rescore_r, k), p * self.cluster_size)
-        qb = self._query_chunk(p)
-        parts = [
-            _ivf_search(q[lo:lo + qb], self.centroids, self.blocks,
-                        self.member_slots, self.store.vectors,
-                        self.store.valid, self.metric, k, p, r,
-                        self._fused_ok(), scales=self.block_scales)
-            for lo in range(0, q.shape[0], qb)
-        ]
-        d = torch.cat([x[0] for x in parts])
-        slots = torch.cat([x[1] for x in parts])
-        pend = self._pending_slots()
-        if pend.size:
-            pd, ps = self._exact_region(
-                q, torch.as_tensor(pend, dtype=torch.long, device=self.device),
-                k)
-            d, slots = _merge_two(d, slots, pd, ps, k)
-        return d, slots
+        with span("index.search_device"):
+            q = _query_tensor(queries, self.dim, self.device)
+            if self.centroids is None:  # unbuilt: exact scan of every row
+                hw = max(self.store.high_watermark, 1)
+                return self._exact_region(
+                    q, torch.arange(hw, device=self.device), k)
+            p = min(nprobe or self.nprobe, self.nlist)
+            r = min(max(self.rescore_r, k), p * self.cluster_size)
+            qb = self._query_chunk(p)
+            parts = [
+                _ivf_search(q[lo:lo + qb], self.centroids, self.blocks,
+                            self.member_slots, self.store.vectors,
+                            self.store.valid, self.metric, k, p, r,
+                            self._fused_ok(), scales=self.block_scales)
+                for lo in range(0, q.shape[0], qb)
+            ]
+            d = torch.cat([x[0] for x in parts])
+            slots = torch.cat([x[1] for x in parts])
+            pend = self._pending_slots()
+            if pend.size:
+                pend = torch.as_tensor(pend, dtype=torch.long,
+                                       device=self.device)
+                pd, ps = self._exact_region(q, pend, k)
+                d, slots = _merge_two(d, slots, pd, ps, k)
+            return d, slots
 
     def search(self, queries, k: int = 10, nprobe: int | None = None):
         """Batched ANN: ``(ids int64 [B, k], dists f32 [B, k])`` ascending,
         ``(-1, inf)`` padded, exact f32 distances; a single query gives 1-D
         arrays. ``nprobe`` overrides the constructor's."""
-        single = np.ndim(queries) == 1
-        d, slots = self.search_device(queries, k, nprobe)
-        ids = self.store.ids_of(slots.cpu().numpy())
-        d = d.cpu().numpy()
-        if single:
-            return ids[0], d[0]
-        return ids, d
+        return _search_ids(self, queries, k, nprobe)
 
     def _exact_region(self, q: torch.Tensor, slots: torch.Tensor, k: int):
         """Exact top-k over the stored rows ``slots`` (the pending region,

@@ -19,6 +19,8 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from muninn_tpu_torch.tracing import span
+
 
 def _round_up(n: int, m: int) -> int:
     return ((n + m - 1) // m) * m
@@ -206,7 +208,8 @@ class VectorStore:
     def ids_of(self, slots) -> np.ndarray:
         """Map slots back to external ids (-1 for a free slot or -1 input)."""
         slots = np.asarray(slots)
-        return np.where(slots >= 0, self._id_of[np.maximum(slots, 0)], -1)
+        with span("index.ids_of", rows=len(slots) if slots.ndim else 1):
+            return np.where(slots >= 0, self._id_of[np.maximum(slots, 0)], -1)
 
     def get_vector(self, id_: int) -> np.ndarray | None:
         s = self.slot(id_)

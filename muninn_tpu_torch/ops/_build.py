@@ -12,7 +12,8 @@ module compiles and loads nothing, so it imports on machines without CUDA.
 
 ``LAUNCHES[name]`` counts the kernel launches a wrapper has made: the
 wrapper adds one after each launch that its launcher reported as accepted,
-and nowhere else.
+and nowhere else. It is ``tracing.LAUNCHES``, bound here under its old
+name, as ``reset_launches`` is.
 """
 
 from __future__ import annotations
@@ -25,15 +26,7 @@ import subprocess
 import threading
 from pathlib import Path
 
-# one count per kernel and operand family: flat_topk's float modes and its
-# int8 mode, beam_dots on f32/bf16 blocks and on int8 blocks, beam_dots'
-# top-m mode, the whole-beam loop, the row gather; flat_topk_mma counts the
-# tensor-core kernel's launches (flat_topk's bf16 mode and flat_topk_int8),
-# each of them also counted under its mode's family
-LAUNCHES: dict[str, int] = {"flat_topk": 0, "flat_topk_int8": 0,
-                            "flat_topk_mma": 0,
-                            "beam_dots": 0, "beam_dots_int8": 0,
-                            "beam_topm": 0, "beam_loop": 0, "gather_rows": 0}
+from muninn_tpu_torch.tracing import LAUNCHES, reset_launches  # noqa: F401
 
 CSRC_DIR = Path(__file__).resolve().parents[1] / "csrc"
 HEADER_DIR = CSRC_DIR  # csrc/*.cuh, found with -I wherever a source lies
@@ -47,11 +40,6 @@ NVCC_FLAGS = (
 BUILD_LOGS: dict[str, str] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
 _LOCK = threading.Lock()
-
-
-def reset_launches() -> None:
-    for name in LAUNCHES:
-        LAUNCHES[name] = 0
 
 
 def nvcc_path() -> str:
