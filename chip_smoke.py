@@ -12,7 +12,7 @@ Phases, each of which exits non-zero on failure:
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
 2. build the ``flat_topk`` (f32, ``highest``), ``flat_topk_mma`` (the
    tensor-core kernel of the bf16 and int8 modes), ``beam_dots`` (with its
-   top-m mode), ``beam_loop`` and ``gather_rows`` kernels from
+   top-m mode), ``beam_loop``, ``beam_step`` and ``gather_rows`` kernels from
    ``muninn_tpu_torch/csrc``, one ``nvcc`` for each, started together (and
    beside them, for phase 17, the host graph library with ``g++``); print
    ``ptxas``'s registers and spills, and the tensor-core kernel's shared
@@ -83,17 +83,25 @@ Phases, each of which exits non-zero on failure:
    on phase 4's data: ``HnswIndex`` of 100,000 x 384 cosine rows, m=16,
    ef_construction=200, wave_size=4,096, capacity 136,864, expand=8,
    seed=42; bulk insert (timed), pack, search 8,192 queries at k=10,
-   ef_search=24 with both kernels' launches counted over exactly this run
+   ef_search=24 with the kernels' launches counted over exactly this run
    (every ``flat_topk`` launch of the build and the routing the tensor-core
-   kernel's);
+   kernel's, one ``beam_step`` a beam step and no ``beam_dots``);
    returned distances equal to the exact distance of each returned row,
    recall@10 against phase 4's exact result at least 0.95; then the search
    timed, and ``gather_block_dots`` kernel against plain on the picks of
-   the first beam step of one 2,816-query chunk (E=8, R0=32, d=384, bf16);
+   the first beam step of one 2,816-query chunk (E=8, R0=32, d=384, bf16:
+   the scoring launch of the eager step, which the fused beam takes above
+   ``beam_step``'s limits); then ``beam_step`` at the HNSW cell's shape
+   (ef=64, E=8, R0=32, d=384, bf16) over every step of one 2,816-query
+   chunk's beam on this index (``beam_step_vs_plain``): kernel and plain
+   bit for bit after every step, each timed over the beam, beside the
+   bound (the live picks' ids, the kept rows, the query and the beam state
+   in and out);
 11. the same index with int8 beam guidance (``search_quant = "int8"``,
-   repacked): search held and timed as in phase 10, with ``beam_dots``
-   launched on int8 blocks; then ``gather_block_dots`` on the int8 table
-   at the chunk shape against plain;
+   repacked): search held and timed as in phase 10, with ``beam_step``
+   launched on int8 blocks and no ``beam_dots``; then ``beam_step`` on the
+   int8 blocks and their scales against plain at the chunk shape and this
+   search's ef=24, as in phase 10;
 12. the ``gather_block_topm`` kernel (``beam_dots``' top-m mode) against its
    plain version: three metrics, f32 and bf16 blocks, d in {100, 128, 384,
    768}, R0 in {16, 32}, E in {1, 8}, m in {1, 8, R0}, B cycling through
@@ -131,9 +139,11 @@ Phases, each of which exits non-zero on failure:
    f32 kernel's; no live edge (level 0 or, after the queued promotions are
    wired, above) points at a tombstone; the first 2,048 queries searched at
    k=10, ef=32 by the row path (no repack), the fused beam after
-   ``pack_neighbors()`` (``beam_dots`` launched) and ``beam_whole``
+   ``pack_neighbors()`` (``beam_step`` launched) and ``beam_whole``
    (``beam_loop`` launched): no deleted id, exact distances, recall@10
-   against exact ``highest`` over the live rows at least 0.95 each; then
+   against exact ``highest`` over the live rows at least 0.95 each;
+   ``beam_step`` against plain over the fused search's beam of those 2,048
+   queries (ef=32, tombstones and part-empty rows), as in phase 10; then
    the kernels against plain at the slice's shapes (the last wave's
    candidate call, bf16; a repair call, ``highest``; an all-masked corpus
    in both modes; ``beam_loop`` on a 2,816-query chunk of the churned
@@ -241,10 +251,11 @@ Phases, each of which exits non-zero on failure:
    width finding each of 2,048 rows first for at least MIN_HNSW_RECALL;
    ``torch.profiler`` splits of one walk batch and 64 SGNS chunks; one
    default 4,096-walker batch timed; then ``flat_topk`` at the bulk
-   build's call (8,192 x 1M x 64, k=33, bf16) and ``gather_block_dots`` at
-   the search's ``[32, 64]`` bf16 blocks, each against its plain version,
-   timed with its bound (and, for ``flat_topk``, the bf16 library call in
-   chunks of 2,048 queries). The phase's JSON line (``{"node2vec":
+   build's call (8,192 x 1M x 64, k=33, bf16) against its plain version,
+   timed with its bound and the bf16 library call in chunks of 2,048
+   queries, and ``beam_step`` against plain over the beam of the index's
+   search of the 2,048 sampled rows (ef=20, E=8, R0=32, d=64, bf16), as in
+   phase 10. The phase's JSON line (``{"node2vec":
    ...}``) comes before the kernels' record; the phase adds no kernel.
 
 Each kernel's record carries its bound: the larger of the operations over
@@ -1696,6 +1707,107 @@ def n2v_card_checks() -> dict:
     return out
 
 
+def beam_step_vs_plain(what: str, qc, entries, vectors, scales, neighbors0,
+                       packed, pscales, metric, ef: int, expand: int) -> dict:
+    """``beam_step`` against ``beam_step_plain`` over every step of one beam
+    of the queries ``qc`` from the routed ``entries``, set up as
+    ``_beam_search_level0`` sets it up (the entries scored from rows of
+    ``vectors``, dequantized by ``scales`` for int8 guidance; its default
+    patience, and ``HnswIndex``'s default step limit, ceil(ef / E) + 1):
+    after each step the kernel's beam distances,
+    slots, flags and stall and its go-on flag bit for bit equal to plain's;
+    then each timed over the whole beam, in ms a step, beside the bound (the
+    live picks' ids, the kept rows with their ``pscales``, the queries and
+    their norms, and the state in and out). Returns the figures the
+    kernels' record carries."""
+    from muninn_tpu_torch.ops.beam_step import (beam_step_cuda, beam_step_plain,
+                                                fetch_rows, go_on)
+    from muninn_tpu_torch.ops.distance import gathered_distances, squared_norms
+    from muninn_tpu_torch.ops.topk import smallest_k
+
+    b, d = qc.shape
+    r0 = neighbors0.shape[1]
+    e = min(expand, ef)
+    patience = max(ef // 4, 10)
+    max_iters = -(-ef // e) + 1
+    qc = qc.float().contiguous()
+    q2 = squared_norms(qc)[:, None]
+    ent = entries if entries.ndim == 2 else entries[:, None]
+    e_d = gathered_distances(qc, fetch_rows(vectors, scales, ent.clamp(min=0).long()),
+                             metric)
+    init = (torch.full((b, ef), float("inf"), device=qc.device),
+            torch.full((b, ef), -1, dtype=torch.int32, device=qc.device),
+            torch.zeros((b, ef), dtype=torch.bool, device=qc.device),
+            torch.zeros(b, dtype=torch.int64, device=qc.device))
+    init[0][:, : ent.shape[1]] = torch.where(ent >= 0, e_d, float("inf"))
+    init[1][:, : ent.shape[1]] = ent
+
+    def work(st):
+        """The live picks and the kept candidates of a step from state st."""
+        bd, bi, bx, stl = st
+        pick_d, pick = smallest_k(torch.where(bx | (bi < 0), float("inf"), bd), e)
+        valid = pick_d < float("inf")
+        do = valid & (valid.any(1) & (stl < patience))[:, None]
+        ids = neighbors0[torch.gather(bi, 1, pick).clamp(min=0).long()].reshape(b, -1)
+        ids = torch.where(do.repeat_interleave(r0, dim=1), ids, -1)
+        ids = torch.where((ids[:, :, None] == bi[:, None, :]).any(dim=2), -1, ids)
+        srt = torch.sort(ids, dim=1).values
+        prev = torch.nn.functional.pad(srt[:, :-1], (1, 0), value=-1)
+        return int(do.sum()), int(((srt >= 0) & (srt != prev)).sum())
+
+    def bits(t):
+        return t.view(torch.int32) if t.is_floating_point() else t
+
+    plain, kern = init, tuple(t.clone() for t in init)
+    flag = torch.zeros(1, dtype=torch.int32, device=qc.device)
+    picks = kept = steps = 0
+    while steps < max_iters and bool(go_on(plain[1], plain[2], plain[3], patience)):
+        lp, kp = work(plain)
+        picks, kept, steps = picks + lp, kept + kp, steps + 1
+        plain = beam_step_plain(qc, q2, *plain, neighbors0, metric, e, patience,
+                                packed=packed, pscales=pscales)
+        flag.zero_()
+        kern = beam_step_cuda(qc, q2, *kern, neighbors0, packed, metric, e,
+                              patience, pscales=pscales, flag=flag)
+        torch.cuda.synchronize()
+        check(all(torch.equal(bits(a), bits(p)) for a, p in zip(kern, plain))
+              and int(flag) == int(go_on(plain[1], plain[2], plain[3], patience)),
+              f"{what}: beam_step differs from plain at step {steps - 1}")
+    check(steps > 0, f"{what}: the beam took no step")
+
+    def kernel_beam():
+        st = tuple(t.clone() for t in init)
+        for _ in range(steps):
+            beam_step_cuda(qc, q2, *st, neighbors0, packed, metric, e, patience,
+                           pscales=pscales)
+
+    def plain_beam():
+        st = init
+        for _ in range(steps):
+            st = beam_step_plain(qc, q2, *st, neighbors0, metric, e, patience,
+                                 packed=packed, pscales=pscales)
+
+    out = {"shape": [b, ef, e, r0, d, str(packed.dtype).removeprefix("torch.")],
+           "steps": steps, "live_picks_per_step": picks / steps,
+           "kept_per_step": kept / steps}
+    out["ms"] = device_ms(kernel_beam, reps=20) / steps
+    out["plain_ms"] = device_ms(plain_beam, reps=5) / steps
+    state = b * (ef * (4 + 4 + 1) + 8)
+    row = d * packed.element_size() + (0 if pscales is None else 4)
+    nbytes = (picks * r0 * 4 + kept * row
+              + steps * (qc.numel() * 4 + b * 4 + 2 * state))
+    # a multiply-add for the dot and one for the squared norm
+    bound_ms, out["bound_by"] = bound(4.0 * kept * d, "fp32", nbytes)
+    out["bound_ms"] = bound_ms / steps
+    print(f"  beam_step, {what}: [{b}, ef {ef}, E {e}] x [{r0}, {d}]"
+          f" {out['shape'][-1]}, {steps} steps, bit-equal to plain after each:"
+          f" kernel {out['ms']:.4f} ms a step, plain {out['plain_ms']:.4f} ms;"
+          f" bound {out['bound_ms']:.4f} ms ({out['bound_by']};"
+          f" {out['live_picks_per_step']:.0f} live picks and"
+          f" {out['kept_per_step']:.0f} kept rows a step)", flush=True)
+    return out
+
+
 def node2vec_phase() -> dict:
     """Phase 19 (see the module docstring). Returns what the phase's JSON
     line prints."""
@@ -1704,8 +1816,6 @@ def node2vec_phase() -> dict:
     from muninn_tpu_torch.index.hnsw import _route
     from muninn_tpu_torch.models import node2vec as n2v
     from muninn_tpu_torch.ops import _build
-    from muninn_tpu_torch.ops.beam import (gather_block_dots_cuda,
-                                           gather_block_dots_plain)
     from muninn_tpu_torch.ops.distance import unit_rows as unit_t
     from muninn_tpu_torch.ops.flat_topk import (flat_topk, flat_topk_cuda,
                                                 flat_topk_plain)
@@ -1836,7 +1946,7 @@ def node2vec_phase() -> dict:
     hids, _ = index.search(emb[qrows], k=10)
     torch.cuda.synchronize()
     out["search_launches"] = dict(_build.LAUNCHES)
-    check(out["search_launches"]["beam_dots"] > 0 and bool((hids > 0).all()),
+    check(out["search_launches"]["beam_step"] > 0 and bool((hids > 0).all()),
           f"the index's search launched {out['search_launches']} or came"
           " back short")
     out["self_recall_output_index"] = float((hids[:, 0] == qrows + 1).mean())
@@ -1957,36 +2067,20 @@ def node2vec_phase() -> dict:
     pool = index._routing_pool()
     sel = _route(qc, pool, index._pool_vecs(pool), index.metric,
                  index.route_entries)
-    picks = sel
     packed = index._maybe_packed()
-    check(packed is not None and packed.shape[1:] == (index.m0, d64),
+    check(packed is not None and packed.shape[1:] == (index.m0, d64)
+          and packed.dtype == torch.bfloat16,
           "the output index's packed table was not built")
-    kdot, knorm = gather_block_dots_cuda(qc, picks, packed)
-    torch.cuda.synchronize()
-    pdot, pnorm = gather_block_dots_plain(qc, picks, packed)
-    torch.testing.assert_close(kdot, pdot, rtol=TOL, atol=TOL)
-    torch.testing.assert_close(knorm, pnorm, rtol=TOL, atol=TOL)
-    out["beam_max_abs_err"] = max(float((kdot - pdot).abs().max()),
-                                  float((knorm - pnorm).abs().max()))
-    out["beam_ms"] = device_ms(lambda: gather_block_dots_cuda(qc, picks, packed),
-                               reps=20)
-    out["beam_plain_ms"] = device_ms(lambda: gather_block_dots_plain(
-        qc, picks, packed))
-    live = int((picks >= 0).sum())
-    out["beam_shape"] = [qc.shape[0], picks.shape[1], *packed.shape[1:]]
-    out["beam_bound_ms"], out["beam_bound_by"] = bound(
-        4.0 * live * packed.shape[1] * d64, "fp32",
-        live * packed.shape[1] * d64 * packed.element_size() + qc.numel() * 4
-        + picks.numel() * 4 + 2 * picks.numel() * packed.shape[1] * 4)
     print(f"  flat_topk at the HNSW bulk build's call, [8192, {d64}] x"
           f" [{n}, {d64}] bf16, k={kb}: kernel {out['flat_ms']:.3f} ms, plain"
           f" {out['flat_plain_ms']:.3f} ms, library {out['flat_library_ms']:.3f}"
           f" ms; bound {out['flat_bound_ms']:.4f} ms ({out['flat_bound_by']});"
-          f" max |d| error {out['flat_max_abs_err']:.3g}; gather_block_dots at"
-          f" {out['beam_shape']} bf16: kernel {out['beam_ms']:.4f} ms, plain"
-          f" {out['beam_plain_ms']:.4f} ms; bound {out['beam_bound_ms']:.4f} ms"
-          f" ({out['beam_bound_by']})", flush=True)
-    del index, g, emb, qc, picks, packed, corpus, valid
+          f" max |d| error {out['flat_max_abs_err']:.3g}", flush=True)
+    # the beam of the index's search above: ef_search's default, 2 * k
+    out["beam_step"] = beam_step_vs_plain(
+        "the Node2Vec output index's search", qc, sel, index._vecs16(), None,
+        index.neighbors0, packed, None, index.metric, 2 * 10, index.expand)
+    del index, g, emb, qc, sel, packed, corpus, valid
     torch.cuda.empty_cache()
     out["phase_s"] = time.perf_counter() - t_phase
     return out
@@ -2003,6 +2097,7 @@ def main() -> int:
     from muninn_tpu_torch.index.hnsw import _route
     from muninn_tpu_torch.ops import _build, beam
     from muninn_tpu_torch.ops import beam_loop as beam_loop_mod
+    from muninn_tpu_torch.ops import beam_step as beam_step_mod
     from muninn_tpu_torch.ops import flat_topk as flat_topk_mod
     from muninn_tpu_torch.ops import gather as gather_mod
     from muninn_tpu_torch.ops.beam import (
@@ -2058,9 +2153,9 @@ def main() -> int:
     native_build.start()
     t0 = time.perf_counter()
     sources = ["flat_topk", "flat_topk_mma", "beam_dots", "beam_loop",
-               "gather_rows"]
+               "beam_step", "gather_rows"]
     _build.load_all(sources)  # one nvcc each, in parallel
-    for mod in (flat_topk_mod, beam, beam_loop_mod, gather_mod):
+    for mod in (flat_topk_mod, beam, beam_loop_mod, beam_step_mod, gather_mod):
         mod._library()
     flat_topk_mod._mma_library()
     print(f"build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s")
@@ -2581,9 +2676,11 @@ def main() -> int:
     torch.cuda.synchronize()
     first_s = time.perf_counter() - t0
     hnsw_launches = dict(_build.LAUNCHES)
-    for name in ("flat_topk", "beam_dots"):
+    for name in ("flat_topk", "beam_step"):
         check(hnsw_launches[name] > 0,
               f"the HNSW path launched {name} {hnsw_launches[name]} times")
+    check(hnsw_launches["beam_dots"] == 0,
+          f"the fused beam launched beam_dots: {hnsw_launches}")
     check(hnsw_launches["flat_topk_mma"] == hnsw_launches["flat_topk"],
           f"the HNSW build or routing launched another kernel: {hnsw_launches}")
     hnsw_recall = check_hnsw(hids, hd, "HNSW")
@@ -2628,6 +2725,12 @@ def main() -> int:
           f" ({block_bytes / beam_ms / 1e6:.0f} GB/s of blocks read), plain"
           f" {beam_plain_ms:.4f} ms; bound {beam_bound_ms:.4f} ms"
           f" ({beam_bound_by})", flush=True)
+
+    # beam_step at the HNSW cell's shape (c100k-384.hnsw: ef 64, E 8, R0 32,
+    # d 384, bf16), every step of one chunk's beam from its routed entries
+    step10 = beam_step_vs_plain("the HNSW cell's shape", qc, picks, hnsw._vecs16(),
+                                None, hnsw.neighbors0, packed, None, "cosine", 64,
+                                hnsw.expand)
     del packed
 
     # 11. int8 beam guidance on the same graph, repacked
@@ -2642,7 +2745,8 @@ def main() -> int:
     torch.cuda.synchronize()
     first8_s = time.perf_counter() - t0
     hnsw8_launches = dict(_build.LAUNCHES)
-    check(hnsw8_launches["beam_dots_int8"] > 0 and hnsw8_launches["beam_dots"] == 0,
+    check(hnsw8_launches["beam_step"] > 0 and hnsw8_launches["beam_dots"] == 0
+          and hnsw8_launches["beam_dots_int8"] == 0,
           f"int8 guidance launches {hnsw8_launches}")
     hnsw8_recall = check_hnsw(hids8, hd8, "HNSW int8")
     search8_ms = device_ms(lambda: hnsw.search_device(qg, k, ef), reps=3)
@@ -2650,24 +2754,12 @@ def main() -> int:
           f" {first8_s:.3f} s, then {search8_ms:.3f} ms"
           f" ({nq / search8_ms * 1e3:.0f} QPS); recall@{k} {hnsw8_recall};"
           f" launches {hnsw8_launches}", flush=True)
-    ps8 = hnsw._packed_scales[picks.clamp(min=0).long()].reshape(chunk, -1)
-    kd11, kc11 = gather_block_dots_cuda(qc, picks, packed8)
-    torch.cuda.synchronize()
-    pd11, pc11 = gather_block_dots_plain(qc, picks, packed8)
-    torch.testing.assert_close(kd11 * ps8, pd11 * ps8, rtol=TOL, atol=TOL)
-    torch.testing.assert_close(kc11 * ps8 * ps8, pc11 * ps8 * ps8, rtol=TOL, atol=TOL)
-    beam8_err = max(float((kd11 - pd11).mul(ps8).abs().max()),
-                    float((kc11 - pc11).mul(ps8 * ps8).abs().max()))
-    beam8_ms = device_ms(lambda: gather_block_dots_cuda(qc, picks, packed8), reps=20)
-    beam8_plain_ms = device_ms(lambda: gather_block_dots_plain(qc, picks, packed8))
-    beam8_bound_ms, beam8_bound_by = beam_bound(packed8)
-    block8_bytes = live_picks * packed8.shape[1] * packed8.shape[2]
-    print(f"gather_block_dots at [{chunk}, {picks.shape[1]}] x"
-          f" [{packed8.shape[1]}, {packed8.shape[2]}] int8: kernel {beam8_ms:.4f}"
-          f" ms ({block8_bytes / beam8_ms / 1e6:.0f} GB/s of blocks read),"
-          f" plain {beam8_plain_ms:.4f} ms; bound {beam8_bound_ms:.4f} ms"
-          f" ({beam8_bound_by}); max error after scaling {beam8_err:.3g}",
-          flush=True)
+    # beam_step on the int8 blocks and their scales, at this search's ef
+    v8, sc8 = hnsw._vecs8()
+    step11 = beam_step_vs_plain("int8 guidance", qc, picks, v8, sc8, hnsw.neighbors0,
+                                packed8, hnsw._packed_scales, "cosine", ef,
+                                hnsw.expand)
+    del v8, sc8, packed8
 
     # 12. gather_block_topm (beam_dots' top-m mode): kernel vs plain, then
     # beam_topm on phase 10's index with bf16 guidance
@@ -2713,7 +2805,8 @@ def main() -> int:
     torch.cuda.synchronize()
     topm_first_s = time.perf_counter() - t0
     topm_launches = dict(_build.LAUNCHES)
-    check(topm_launches["beam_topm"] > 0 and topm_launches["beam_dots"] == 0,
+    check(topm_launches["beam_topm"] > 0 and topm_launches["beam_dots"] == 0
+          and topm_launches["beam_step"] == 0,
           f"beam_topm search launches {topm_launches}")
     topm_recall = check_hnsw(tids, tdist, "HNSW beam_topm")
     topm_search_ms = device_ms(lambda: hnsw.search_device(qg, k, ef), reps=3)
@@ -2839,7 +2932,8 @@ def main() -> int:
     whole_first_s = time.perf_counter() - t0
     whole_launches = dict(_build.LAUNCHES)
     check(whole_launches["beam_loop"] > 0 and whole_launches["beam_dots"] == 0
-          and whole_launches["flat_topk"] > 0, f"whole-beam search launches {whole_launches}")
+          and whole_launches["beam_step"] == 0 and whole_launches["flat_topk"] > 0,
+          f"whole-beam search launches {whole_launches}")
     whole_recall = check_hnsw(wids, wdist, "HNSW whole-beam")
     check(abs(whole_recall - hnsw_recall) <= 0.01,
           f"whole-beam recall {whole_recall} vs fused {hnsw_recall}")
@@ -3019,16 +3113,24 @@ def main() -> int:
         cids, cd = hnsw.search(q15, k=k, ef_search=ef15)
         torch.cuda.synchronize()
         launches15 = dict(_build.LAUNCHES)
-        want = {"row": ("flat_topk", None), "fused": ("beam_dots", "beam_loop"),
-                "whole": ("beam_loop", "beam_dots")}[engine]
+        want = {"row": ("flat_topk", None), "fused": ("beam_step", "beam_loop"),
+                "whole": ("beam_loop", "beam_step")}[engine]
         check(launches15["flat_topk"] > 0 and launches15[want[0]] > 0
               and (want[1] is None or launches15[want[1]] == 0)
-              and (engine != "row" or launches15["beam_dots"] == 0),
+              and launches15["beam_dots"] == 0
+              and (engine != "row" or launches15["beam_step"] == 0),
               f"{engine} search after churn launches {launches15}")
         churn15[engine] = (check_churn(cids, cd, f"{engine} search after churn"),
                            device_ms(lambda: hnsw.search_device(qg15, k, ef15), reps=3),
                            launches15)
     hnsw.beam_whole = False
+    pool15 = hnsw._routing_pool()
+    step15 = beam_step_vs_plain(
+        "search after churn", qg15,
+        _route(qg15, pool15, hnsw._pool_vecs(pool15), "cosine",
+               min(hnsw.route_entries, ef15)),
+        hnsw._vecs16(), None, hnsw.neighbors0, hnsw._maybe_packed(), None, "cosine",
+        ef15, hnsw.expand)
     print(f"{card_line()}: churn at 100k x 384, m={m}: incr_insert_vec_per_s"
           f" {incr_rate:.1f} ({n_waves} waves of {wave15}), delete_repair_per_s"
           f" {delete_rate:.1f} (7 deletes of {kill15}); {len(hnsw)} live rows,"
@@ -3229,13 +3331,7 @@ def main() -> int:
         "bound_ms": beam_bound_ms,
         "bound_by": beam_bound_by,
         "library_ms": None,
-        "launches_int8": hnsw8_launches["beam_dots_int8"],
-        "max_abs_err_int8": beam8_err,
-        "ms_int8": beam8_ms,
-        "plain_ms_int8": beam8_plain_ms,
-        "bound_ms_int8": beam8_bound_ms,
         "bound_share": beam_bound_ms / beam_ms,
-        "bound_share_int8": beam8_bound_ms / beam8_ms,
         "launches_ivf_search": ivf16["launches"]["beam_dots"],
         "max_abs_err_ivf": ivf16["beam_err"],
         "ms_ivf": ivf16["beam_ms"],
@@ -3250,12 +3346,29 @@ def main() -> int:
         "bound_ms_ivf_int8": ivf16["beam_bound_ms_int8"],
         "bound_by_ivf_int8": ivf16["beam_bound_by_int8"],
         "bound_ms_ivf_per_pick_int8": ivf16["beam_bound_ms_per_pick_int8"],
-        "launches_n2v_self_search": n2v19["search_launches"]["beam_dots"],
-        "max_abs_err_n2v": n2v19["beam_max_abs_err"],
-        "ms_n2v": n2v19["beam_ms"],
-        "plain_ms_n2v": n2v19["beam_plain_ms"],
-        "bound_ms_n2v": n2v19["beam_bound_ms"],
-        "bound_by_n2v": n2v19["beam_bound_by"],
+    }, {
+        "name": "beam_step",
+        "route": "cuda",
+        "source": "muninn_tpu_torch/csrc/beam_step.cu",
+        "replaces": "muninn_tpu/ops/pallas_beam.py:46 and the XLA glue of"
+                    " muninn_tpu/index/hnsw.py:271-416",
+        "launches": hnsw_launches["beam_step"],
+        "launches_int8": hnsw8_launches["beam_step"],
+        "launches_churn_search": churn15["fused"][2]["beam_step"],
+        "launches_n2v_self_search": n2v19["search_launches"]["beam_step"],
+        "max_abs_err": 0.0,
+        "shape": step10["shape"],
+        "steps": step10["steps"],
+        "ms": step10["ms"],
+        "plain_ms": step10["plain_ms"],
+        "bound_ms": step10["bound_ms"],
+        "bound_by": step10["bound_by"],
+        "library_ms": None,
+        "bound_share": step10["bound_ms"] / step10["ms"],
+        **{f"{field}_{tag}": st[field]
+           for tag, st in (("int8", step11), ("churn", step15),
+                           ("n2v", n2v19["beam_step"]))
+           for field in ("shape", "steps", "ms", "plain_ms", "bound_ms", "bound_by")},
     }, {
         "name": "beam_topm",
         "route": "cuda",

@@ -224,12 +224,6 @@ cudaError_t allow_smem(K kernel, size_t smem) {
                               (int)smem);
 }
 
-template <typename T>
-int rows_vec(const void* packed, int D) {
-  return (reinterpret_cast<uintptr_t>(packed) % 16 == 0) &&
-         ((size_t)D * sizeof(T)) % 16 == 0;
-}
-
 // pick_of's multiplier for R0 > 1.
 inline unsigned long long reciprocal(int R0) {
   return R0 > 1 ? ~0ull / (unsigned long long)R0 + 1 : 0;
@@ -238,8 +232,7 @@ inline unsigned long long reciprocal(int R0) {
 // The row geometry of block_rows.cuh: (vec, log2 of the lanes a row).
 template <typename T>
 void geometry(const void* packed, int D, int& vec, int& lg) {
-  vec = rows_vec<T>(packed, D);
-  lg = block_rows::lanes_log2(vec ? D / (16 / (int)sizeof(T)) : D, kUnits);
+  block_rows::geometry<T>(packed, D, kUnits, vec, lg);
 }
 
 // Shared memory of a block: `words` of it before the picks, and the E pick

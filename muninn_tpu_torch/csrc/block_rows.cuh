@@ -1,7 +1,8 @@
 // Block-row scoring for the HNSW beam kernels (csrc/beam_dots.cu in its
-// dots and top-m modes, csrc/beam_loop.cu): the dot of an f32 query with,
-// and the squared norm of, many stored rows (f32, bf16 or int8), summed in
-// f32 with fmaf; int8 squared norms are exact integers (__dp4a).
+// dots and top-m modes, csrc/beam_loop.cu, csrc/beam_step.cu): the dot of
+// an f32 query with, and the squared norm of, many stored rows (f32, bf16
+// or int8), summed in f32 with fmaf; int8 squared norms are exact integers
+// (__dp4a).
 //
 // Layout: a row is `units` loads of 16 bytes (`vec`: the row starts 16-byte
 // aligned and D * sizeof(T) is a multiple of 16), else of one element. L
@@ -20,8 +21,8 @@
 // and (dot, sq) = (0, 0)); `emit(r, dot, sq, loaded)`, called once per row,
 // on one lane of its group (`loaded`: row_of gave an address).
 //
-// Included by beam_dots.cu and beam_loop.cu; `_build.py` hashes this header
-// with each source, so a change here rebuilds both.
+// Included by beam_dots.cu, beam_loop.cu and beam_step.cu; `_build.py`
+// hashes this header with each source, so a change here rebuilds them all.
 
 #pragma once
 
@@ -38,6 +39,17 @@ __host__ __device__ inline int lanes_log2(int units, int per_lane) {
   int lg = 2;
   while (lg < 5 && units > (per_lane << lg)) ++lg;
   return lg;
+}
+
+// The launcher's row geometry for rows of T starting at `packed`: `vec`,
+// 16-byte loads (the table 16-byte aligned and D * sizeof(T) a multiple of
+// 16), and `lg`, lanes_log2 at `per_lane` loads a lane. A row's sum order
+// follows from these alone, so kernels that take the same geometry sum a
+// row alike (beam_dots.cu and beam_step.cu: 8 loads a lane).
+template <typename T>
+inline void geometry(const void* packed, int D, int per_lane, int& vec, int& lg) {
+  vec = reinterpret_cast<uintptr_t>(packed) % 16 == 0 && ((size_t)D * sizeof(T)) % 16 == 0;
+  lg = lanes_log2(vec ? D / (16 / (int)sizeof(T)) : D, per_lane);
 }
 
 // The metric over one row's (dot, cn2), as ops/beam.py packed_distances

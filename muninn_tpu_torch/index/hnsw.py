@@ -30,7 +30,9 @@ repair, and every search route.
   ``precision="default"``), a level-0 beam guided by bf16 vectors, or by
   int8 ones with one scale per row (``search_quant = "int8"``), whose
   expansions read packed ``[R0, d]`` neighbour blocks through
-  ``ops.beam.gather_block_dots``, then an exact f32 rescore of the beam.
+  ``ops.beam.gather_block_dots``, then an exact f32 rescore of the beam. On
+  the card each step of that beam is one ``ops.beam_step`` kernel launch
+  wherever ``ops.beam_step.step_engine`` admits its inputs.
   Below ``exact_small_n`` stored rows search is exact ``flat_topk``. Two
   other beam engines over the same packed bf16 table: ``beam_topm > 0``
   keeps each pick's best candidates in ``ops.beam.gather_block_topm``, and
@@ -41,7 +43,7 @@ repair, and every search route.
   and searches in f32 (``_search_slots``).
 
 PyTorch runs eagerly: the beam's ``lax.while_loop`` is a Python loop of at
-most ``max_iters`` steps that reads ``live.any()`` once per step. The JAX
+most ``max_iters`` steps that reads one go-on flag back per step. The JAX
 package's ``.at[...].set(..., mode="drop")`` has no PyTorch counterpart (an
 out-of-range index is a device-side assert on CUDA), so every scatter
 here masks its out-of-range indices out first, and the JAX package's
@@ -58,13 +60,14 @@ import torch
 
 from muninn_tpu_torch.index.flat import _query_tensor, _search_ids
 from muninn_tpu_torch.index.store import VectorStore
-from muninn_tpu_torch.ops.beam import (
-    BIG,
-    gather_block_dots,
-    gather_block_topm,
-    packed_distances,
-)
 from muninn_tpu_torch.ops.beam_loop import beam_loop
+from muninn_tpu_torch.ops.beam_step import (
+    beam_step,
+    beam_step_plain,
+    fetch_rows,
+    go_on,
+    step_engine,
+)
 from muninn_tpu_torch.ops.distance import (
     Metric,
     gathered_distances,
@@ -182,9 +185,15 @@ def _beam_search_level0(
     no query has an unexpanded entry within its patience (``max(ef/4, 10)``
     non-improving expansions by default), or after ``max_iters`` steps.
 
-    With ``packed``, candidates are scored from the picks' packed blocks
-    through ``gather_block_dots`` (the kernel on CUDA, its plain version
-    on the CPU); without, from rows of ``vectors``. int8 guidance
+    A step is ``ops.beam_step.beam_step_plain``, or, where
+    ``step_engine`` admits the inputs (a CUDA beam over a packed table,
+    ``topm == 0``, ``ef`` and ``E * R0`` within the kernel's limits), one
+    ``beam_step`` kernel launch with the same results, which ORs the next
+    step's go-on flag into a device flag; the ``hnsw.beam`` span's
+    ``engine`` attribute says which ("kernel" or "eager"). With ``packed``,
+    candidates are scored from the picks' packed blocks through
+    ``gather_block_dots`` (the kernel on CUDA, its plain version on the
+    CPU); without, from rows of ``vectors``. int8 guidance
     (``hnsw.py:235-240``, ``:369-373``): rows of int8 ``vectors`` are
     dequantized by ``scales`` after the gather, and the dots and squared
     norms of int8 blocks are scaled by each neighbour's ``pscales`` entry
@@ -204,106 +213,55 @@ def _beam_search_level0(
             patience = max(ef // 4, 10)  # counted in expansions
         if max_iters <= 0:
             max_iters = 2 * (ef // expand + 1) + patience // expand + 8
-        use_topm = packed is not None and topm > 0 and pscales is None
+        engine = step_engine(dev, packed, topm, ef, expand)
+        beam.set(engine=engine)
 
-        qf = queries.float()
+        qf = queries.float().contiguous()
         qn2 = squared_norms(qf)[:, None]
-
-        def fetch(idx):
-            v = vectors[idx]
-            if scales is not None:
-                v = v.float() * scales[idx][..., None]
-            return v
 
         if entry.ndim == 1:
             entry = entry[:, None]
         r_ent = entry.shape[1]
-        e_d = gathered_distances(qf, fetch(entry.clamp(min=0).long()), metric)
+        e_d = gathered_distances(
+            qf, fetch_rows(vectors, scales, entry.clamp(min=0).long()), metric)
         beam_d = torch.full((b, ef), _INF, device=dev)
         beam_i = torch.full((b, ef), -1, dtype=torch.int32, device=dev)
         beam_d[:, :r_ent] = torch.where(entry >= 0, e_d, _INF)
         beam_i[:, :r_ent] = entry
         expanded = torch.zeros((b, ef), dtype=torch.bool, device=dev)
         stall = torch.zeros(b, dtype=torch.int64, device=dev)
-        c = expand * (topm if use_topm else r0)
-        earlier = torch.ones((c, c), dtype=torch.bool, device=dev).tril(-1)
+        if engine == "kernel":
+            # one go-on flag a step, zeroed once: each step's launch ORs in
+            # the next step's, so the host reads a flag and launches nothing
+            # else
+            flags = torch.zeros(max_iters + 1, dtype=torch.int32, device=dev)
+            flags[0] = go_on(beam_i, expanded, stall, patience)
+        else:
+            use_topm = packed is not None and topm > 0 and pscales is None
+            c = expand * (topm if use_topm else r0)
+            earlier = torch.ones((c, c), dtype=torch.bool, device=dev).tril(-1)
 
         steps = 0  # loop iterations entered, each one host read
         for step in range(max_iters):
             with span("hnsw.beam_step", step=step):
-                has_unexpanded = ((~expanded) & (beam_i >= 0)).any(dim=1)
+                flag = (flags[step] if engine == "kernel"
+                        else go_on(beam_i, expanded, stall, patience))
                 steps += 1
                 with span("hnsw.step_read"):
-                    go_on = host_read("hnsw_beam",
-                                      (has_unexpanded & (stall < patience)).any())
-                if not go_on:
+                    go = host_read("hnsw_beam", flag)
+                if not go:
                     break
-                # the best `expand` unexpanded entries of each query
-                cand_d = torch.where(expanded | (beam_i < 0), _INF, beam_d)
-                pick_d, pick = smallest_k(cand_d, expand)
-                pick_i = torch.gather(beam_i, 1, pick)
-                pick_valid = pick_d < _INF
-                live = pick_valid.any(dim=1) & (stall < patience)
-                do = pick_valid & live[:, None]
-                expanded = expanded | torch.zeros_like(expanded).scatter(
-                    1, pick, do)
-                # dead picks ride as -1: the kernels skip their blocks
-                live_picks = torch.where(do, pick_i, -1)
-
-                nbrs = neighbors0[pick_i.clamp(min=0).long()].reshape(
-                    b, expand * r0)
-                nbrs = torch.where(do.repeat_interleave(r0, dim=1), nbrs, -1)
-                # dedup by equality: drop candidates already in the beam and
-                # repeats within this step (the first occurrence stays)
-                beam_cmp = torch.where(beam_i < 0, -2, beam_i)
-                in_beam = (nbrs[:, :, None] == beam_cmp[:, None, :]).any(dim=2)
-
-                if use_topm:
-                    pen = torch.where(in_beam | (nbrs < 0), BIG, 0.0)
-                    md, ml = gather_block_topm(qf, live_picks, packed, pen,
-                                               metric, topm)
-                    nd = md.reshape(b, c)
-                    sel = torch.gather(nbrs.reshape(b, expand, r0), 2, ml.long())
-                    nbrs = torch.where(nd < 1.0e38, sel.reshape(b, c), -1)
-                    drop = torch.zeros((b, c), dtype=torch.bool, device=dev)
+                if engine == "kernel":
+                    beam_d, beam_i, expanded, stall = beam_step(
+                        qf, qn2, beam_d, beam_i, expanded, stall, neighbors0,
+                        packed, metric, expand, patience, pscales=pscales,
+                        dedup=dedup, flag=flags[step + 1 : step + 2])
                 else:
-                    drop = in_beam
-                    if packed is not None:
-                        dots, cn2 = gather_block_dots(qf, live_picks, packed)
-                        if pscales is not None:
-                            ps = pscales[pick_i.clamp(min=0).long()].reshape(
-                                b, c)
-                            dots = dots * ps
-                            cn2 = cn2 * ps * ps
-                        nd = packed_distances(dots, cn2, qn2, metric)
-                    else:
-                        nd = gathered_distances(
-                            qf, fetch(nbrs.clamp(min=0).long()), metric)
-                if dedup:
-                    drop = drop | ((nbrs[:, :, None] == nbrs[:, None, :])
-                                   & earlier).any(dim=2)
-                nbrs = torch.where(drop, -1, nbrs)
-                nd = torch.where(nbrs >= 0, nd, _INF)
-
-                # merge: one top-ef over [beam | fresh candidates]
-                cat_d = torch.cat([beam_d, nd], dim=1)
-                cat_i = torch.cat([beam_i, nbrs], dim=1)
-                cat_f = torch.cat(
-                    [expanded, torch.zeros_like(nbrs, dtype=torch.bool)], dim=1)
-                new_d, pos = smallest_k(cat_d, ef)
-                new_i = torch.gather(cat_i, 1, pos)
-                new_f = torch.gather(cat_f, 1, pos)
-                new_i = torch.where(torch.isinf(new_d), -1, new_i)
-                new_f = new_f & (new_i >= 0)
-                # an expansion improves when the beam's tail tightens or the
-                # beam is still filling (src/hnsw_algo.c:368-392)
-                improved = (new_d[:, ef - 1] < beam_d[:, ef - 1]) | (
-                    (new_i >= 0).sum(dim=1) > (beam_i >= 0).sum(dim=1)
-                )
-                stall = torch.where(
-                    live, torch.where(improved, 0, stall + do.sum(dim=1)), stall
-                )
-                beam_d, beam_i, expanded = new_d, new_i, new_f
+                    beam_d, beam_i, expanded, stall = beam_step_plain(
+                        qf, qn2, beam_d, beam_i, expanded, stall, neighbors0,
+                        metric, expand, patience, packed=packed,
+                        pscales=pscales, dedup=dedup, topm=topm,
+                        vectors=vectors, scales=scales, earlier=earlier)
         beam.set(steps=steps)
     return beam_d, beam_i
 

@@ -60,7 +60,7 @@ PICK_XFERS = ("dma", "scalar")
 MAX_EF = 1024
 MAX_CANDIDATES = 4096
 _SMEM_BYTES = 232448  # an H100 block's shared memory
-_SCRATCH_WORDS = 32   # kScratchWords in csrc/beam_loop.cu
+_SCRATCH_WORDS = 32   # kScratchWords in csrc/beam_phases.cuh
 _INF = float("inf")
 
 
@@ -200,7 +200,7 @@ def beam_loop_plain(
 
 
 def _smem_words(dq: int, ef: int, e: int, c: int, h: int) -> int:
-    """``smem_words`` of csrc/beam_loop.cu: the query ``dq``, two beams of
+    """``smem_words`` of csrc/beam_phases.cuh: the query ``dq``, two beams of
     ``ef`` (distance, slot, flag), ``c`` candidates (id, kept (pick, row),
     contender distance and position, sorted distance and id), ``e`` pick
     slots, ``h`` hash slots (key, value), scratch; 4 bytes each."""
@@ -208,7 +208,7 @@ def _smem_words(dq: int, ef: int, e: int, c: int, h: int) -> int:
 
 
 def _plan(d: int, ef: int, e: int, r0: int) -> tuple[int, bool, int]:
-    """``plan`` of csrc/beam_loop.cu: ``(hash slots, query in shared
+    """``plan`` of csrc/beam_phases.cuh: ``(hash slots, query in shared
     memory, bytes)``. The hash has the power of two at or above ``2 (ef +
     E*R0)`` slots, halved while the block does not fit and half still hold
     ``ef + E*R0``; the query goes to shared memory where it fits beside the

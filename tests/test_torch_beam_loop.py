@@ -294,9 +294,10 @@ def test_beam_loop_plain_bit_equal_to_jax_packed_beam_at_search_degree_12(metric
 
 
 def _source_smem_words():
-    """``smem_words`` and ``kScratchWords`` as csrc/beam_loop.cu writes
-    them, as a function of (dq, ef, e, c, h)."""
-    src = (Path(beam_loop_mod.__file__).parents[1] / "csrc" / "beam_loop.cu").read_text()
+    """``smem_words`` and ``kScratchWords`` as csrc/beam_phases.cuh (the
+    layout csrc/beam_loop.cu and csrc/beam_step.cu share) writes them, as a
+    function of (dq, ef, e, c, h)."""
+    src = (Path(beam_loop_mod.__file__).parents[1] / "csrc" / "beam_phases.cuh").read_text()
     expr = re.search(r"smem_words\([^)]*\)\s*\{\s*return ([^;]+);", src).group(1)
     scratch = int(re.search(r"constexpr int kScratchWords = (\d+);", src).group(1))
     return lambda dq, ef, e, c, h: eval(

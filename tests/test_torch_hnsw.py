@@ -30,6 +30,7 @@ from muninn_tpu_torch import FlatIndex, HnswIndex
 from muninn_tpu_torch.index import hnsw as hnsw_mod
 from muninn_tpu_torch.index.convert import hnsw_index_from_numpy, hnsw_index_to_numpy
 from muninn_tpu_torch.ops import _build
+from muninn_tpu_torch.ops import beam_step as beam_step_mod
 
 REPO = Path(__file__).resolve().parents[1]
 METRICS = ["l2", "cosine", "inner_product"]
@@ -165,11 +166,12 @@ def carried(tmp_path_factory):
     return j, state, q, truth
 
 
-def _counting(monkeypatch, name):
-    """Count the calls the HNSW module makes to ``name``."""
+def _counting(monkeypatch, name, module=hnsw_mod):
+    """Count the calls ``module`` (the HNSW module unless given) makes to
+    ``name``."""
     calls = []
-    real = getattr(hnsw_mod, name)
-    monkeypatch.setattr(hnsw_mod, name, lambda *a, **kw: calls.append(1) or real(*a, **kw))
+    real = getattr(module, name)
+    monkeypatch.setattr(module, name, lambda *a, **kw: calls.append(1) or real(*a, **kw))
     return calls
 
 
@@ -218,7 +220,7 @@ def test_topm_search_on_carried_graph_matches_jax(carried, monkeypatch):
     t.exact_small_n = 0
     t.pack_neighbors()
     jid, jdist = _jax_fused_search(j, q, k, ef, topm=8)
-    calls = _counting(monkeypatch, "gather_block_topm")
+    calls = _counting(monkeypatch, "gather_block_topm", beam_step_mod)
     t.beam_topm = 8
     tid, tdist = t.search(q, k=k, ef_search=ef)
     assert calls

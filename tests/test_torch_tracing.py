@@ -107,6 +107,7 @@ def test_hnsw_fused_span_tree_and_host_syncs(hnsw):
     route, beam, rescore = _children(spans, chunk)
     assert _names([route, beam, rescore]) == ["hnsw.route", "hnsw.beam",
                                               "hnsw.rescore"]
+    assert beam.attrs["engine"] == "eager"  # the CPU's step, row path
     steps = _children(spans, beam)
     assert len(steps) == beam.attrs["steps"] >= 2
     assert [s.attrs["step"] for s in steps] == list(range(len(steps)))
@@ -114,6 +115,32 @@ def test_hnsw_fused_span_tree_and_host_syncs(hnsw):
         assert _names(_children(spans, step)) == ["hnsw.step_read"]
     # one flag read a step entered, two downloads
     assert root.attrs["host_syncs"] == beam.attrs["steps"] + 2
+
+
+def test_hnsw_beam_engine_attribute_keeps_the_step_tree(hnsw, monkeypatch):
+    """The ``hnsw.beam`` span names its step engine; with the kernel's flag
+    protocol (the engine forced to "kernel": on CPU tensors its wrapper runs
+    the plain step) the steps keep their tree, one read a step, and the
+    request its host reads."""
+    from muninn_tpu_torch.index import hnsw as hnsw_mod
+
+    hnsw.pack_neighbors()
+    q = _rows(40, seed=4)
+    trees = {}
+    for engine in ("eager", "kernel"):
+        monkeypatch.setattr(hnsw_mod, "step_engine", lambda *a, _e=engine: _e)
+        _, spans, _ = _profiled(lambda: hnsw.search(q, 10, ef_search=32))
+        (root,) = _roots(spans)
+        (beam,) = [s for s in spans if s.name == "hnsw.beam"]
+        assert beam.attrs["engine"] == engine
+        steps = _children(spans, beam)
+        assert len(steps) == beam.attrs["steps"] >= 2
+        assert [s.attrs["step"] for s in steps] == list(range(len(steps)))
+        for step in steps:
+            assert _names(_children(spans, step)) == ["hnsw.step_read"]
+        assert root.attrs["host_syncs"] == beam.attrs["steps"] + 2
+        trees[engine] = (beam.attrs["steps"], root.attrs["host_syncs"])
+    assert trees["eager"] == trees["kernel"]
 
 
 def test_hnsw_whole_beam_span_tree(hnsw):

@@ -19,7 +19,10 @@ expand=8, ef=24, on its data recipe; one 2,816-query chunk):
    ``t128``, ``t256``: those the source does not use), with a register cap
    (``lb4``: 4 blocks of 256 threads an SM; ``lb6``: 6 of 128), and with 1
    or 4 row groups a warp (``g1``, ``g4``) and 4 or 8 loads a lane and row
-   in a pass (``u4``, ``u8``) where the source has those knobs.
+   in a pass (``u4``, ``u8``) where the source has those knobs. Since
+   ``beam_loop``'s phases moved to csrc/beam_phases.cuh (shared with
+   ``beam_step``), its block size and its dedup lie in that header: its
+   current text has no ``t<n>`` and no ``nodedup`` variants.
 3. The whole-beam HNSW search (``beam_whole = True``, 8,192 queries) with
    each tree's ``beam_loop``, then under ``torch.profiler``: the device's
    busy time and idle share as it runs, and the kernel time of routing
@@ -75,6 +78,29 @@ extern "C" int beam_probe_phases(unsigned long long* out) {
 # variants: edits of the source, each (old, new, times found), and of
 # block_rows.cuh where the rows are scored there.
 LOOP_GENS = [{
+    # the phases in csrc/beam_phases.cuh, shared with beam_step.cu: the dedup
+    # lies in the header, so this generation has no nodedup variant
+    "marker": "score_contenders<__nv_bfloat16, kGroups, kUnits>(",
+    "start": "  const size_t b = blockIdx.x;\n",
+    "step": "  for (int it = 0; it < max_iters; ++it) {\n",
+    "phases": [("pick", "    // candidates:"), ("ids", "    // dedup:"),
+               ("dedup", "    // score:"), ("score", "    // rank:"),
+               ("rank", "    // merge:"),
+               ("merge", "  }\n  for (int p = tid; p < ef; p += kThreads) {\n"
+                         "    out_d[b * ef + p] = p < nfin")],
+    "end": "  for (int p = tid; p < ef; p += kThreads) {\n    out_d[b * ef + p] = p < nfin",
+    "noscore": [(("    score_contenders<__nv_bfloat16, kGroups, kUnits>(", "        });\n"),
+                 """    for (int r = tid; r < nk; r += kThreads) {
+      const float d = (float)(s.kl[r] & 1023) * 1e-3f;
+      if (d < thr) {
+        const int at = atomicAdd(&s.sc[1], 1);
+        s.kd[at] = d;
+        s.kx[at] = r;
+      }
+    }
+    __syncthreads();
+""", 1)],
+}, {
     "marker": "pick: the first E unexpanded entries with a slot",  # sorted beam
     "start": "  const size_t b = blockIdx.x;\n",
     "step": "  for (int it = 0; it < max_iters; ++it) {\n",
@@ -188,11 +214,14 @@ def edits(text: str, triples) -> str:
 
 
 def shape_variants(src: str) -> dict[str, str]:
+    # a source whose block size lies in csrc/beam_phases.cuh (128 threads)
+    # keeps it: no t<n> variants
     threads = re.search(r"constexpr int kThreads = (\d+);", src)
-    out = {f"t{n}": src.replace(threads.group(0), f"constexpr int kThreads = {n};")
-           for n in (64, 128, 256) if str(n) != threads.group(1)}
+    out = {} if threads is None else {
+        f"t{n}": src.replace(threads.group(0), f"constexpr int kThreads = {n};")
+        for n in (64, 128, 256) if str(n) != threads.group(1)}
     knobs = dict(KNOB_VARIANTS)
-    del knobs["lb4" if threads.group(1) == "128" else "lb6"]
+    del knobs["lb4" if threads is None or threads.group(1) == "128" else "lb6"]
     out.update({v: edits(src, e) for v, e in knobs.items()
                 if all(old in src for old, _, _ in e)})
     return out
@@ -210,9 +239,8 @@ def loop_variants(src: str, header: str) -> dict[str, tuple[str, str | None]]:
         timed = sub(timed, anchor, f"    PHASE({k});\n{count}{anchor}")
     timed = sub(timed, g["end"], "  if (threadIdx.x == 0) atomicAdd(&g_phase[6],"
                 " (unsigned long long)(clock64() - t_start));\n" + g["end"])
-    out = {"timed": (timed + TIMER_READ, None),
-           "noscore": (edits(src, g["noscore"]), None),
-           "nodedup": (edits(src, g["nodedup"]), None)}
+    out = {"timed": (timed + TIMER_READ, None)}
+    out.update({v: (edits(src, g[v]), None) for v in ("noscore", "nodedup") if v in g})
     out.update({v: (t, None) for v, t in shape_variants(src).items()})
     return out
 
