@@ -7,9 +7,11 @@ process for many seeds (the benchmark's own runs never run this).
 For each seed: one run of the cell as ``run.py`` makes it (set-up, the
 window, the program's answers judged: the lower readings), then each
 control that the cell's traffic file lists (``controls/<name>.py``) answers
-the same judged queries and is judged by the same numbers (the upper
-readings). Prints one JSON line a seed and a summary: for each number the
-largest the program read and, for each control, the smallest it read.
+the same judged queries over the same live rows, a live state at a time as
+the run judges them, and is judged by the same numbers, pooled over the
+states as the program's are (the upper readings). Prints one JSON line a
+seed and a summary: for each number the largest the program read and, for
+each control, the smallest it read.
 """
 
 from __future__ import annotations
@@ -38,16 +40,32 @@ def readings(bench: Bench, name: str, seed: int, seconds: float,
     run.window(seconds)
     controls = {c: bench.module("controls", c) for c in run.p.get("controls", ())}
     run.close()
-    q, x, ref_d, ref_rows = run.judge()
+    nums = control_numbers(run, controls)
     out = {"workload": name, "seed": seed, "correct": run.correct,
            "requests": run.attempted, "judged": int(sum(len(k[1]) for k in run.kept)),
-           "qps": run.answered / run.window_s, "program": run.numbers}
-    for c, mod in controls.items():
-        rows, dists = mod.answer(run, q, x)
-        nums = reference.judge(q, x, np.arange(len(q)), rows, dists, ref_d,
-                               ref_rows, run.p["metric"])
-        out[c] = dict(nums, correct=Run.within(run.checks(nums)))
+           "states": run.states, "qps": run.answered / run.window_s,
+           "program": run.numbers}
+    for c in controls:
+        out[c] = dict(nums[c], correct=Run.within(run.checks(nums[c])))
     return out
+
+
+def control_numbers(run: Run, controls: dict) -> dict:
+    """Judge the run's answers (into ``run.numbers``) and each control of
+    ``controls`` (name: module) on the same judged queries over the same
+    live rows, a live state at a time; returns each control's numbers,
+    pooled over the states as the program's are."""
+    tallies = {c: [] for c in controls}
+
+    def visit(q, x, ref_d, ref_rows):
+        for c, mod in controls.items():
+            rows, dists = mod.answer(run, q, x)
+            tallies[c].append(reference.tally(q, x, np.arange(len(q)), rows,
+                                              dists, ref_d, ref_rows,
+                                              run.p["metric"]))
+
+    run.judge(visit)
+    return {c: reference.pool(t, run.k) for c, t in tallies.items()}
 
 
 def summary(lines: list[dict]) -> dict:

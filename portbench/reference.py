@@ -9,6 +9,14 @@ the benchmark's own id table, and the distances returned) only to judge
 them. It runs after the window, in blocks of queries and rows, on the run's
 device.
 
+Each answer is judged against the rows that were live when it was given:
+an engine whose requests write rows hands the caller the live set of each
+state it reports, and the caller judges each state's answers against that
+state's exact top-k (``tally``) and pools the states (``pool``). An answer
+given from an older state than its request reports is wrong by these same
+numbers: a row deleted since is an id no live row has, a row added since is
+a miss, and a row given a new vector since is a distance off its row.
+
 The numbers (``judge``), each held to the limit its traffic file gives:
 
 - ``bad_rows``: answers with an id that no row has, an id twice, a
@@ -97,15 +105,15 @@ def exact_topk(q: np.ndarray, x: torch.Tensor, k: int, metric: str,
     return torch.cat(out_d), torch.cat(out_i)
 
 
-def judge(q: np.ndarray, x: torch.Tensor, which: np.ndarray,
+def tally(q: np.ndarray, x: torch.Tensor, which: np.ndarray,
           ans_rows: np.ndarray, ans_d: np.ndarray, ref_d: torch.Tensor,
           ref_rows: torch.Tensor, metric: str, block: int = 1024) -> dict:
-    """The numbers of ``A`` answers: answer ``a`` is to query
-    ``q[which[a]]``, its rows ``ans_rows[a]`` (-1: an id no row has) and
-    distances ``ans_d[a]``; ``ref_d``, ``ref_rows`` are ``exact_topk`` of
-    ``q``. Returns ``{"bad_rows", "dist_err", "rank_gap", "miss_at_<k>"}``
-    (the last three over the answers that are not bad, with ``miss`` over
-    all)."""
+    """What ``A`` answers over one live set add to the numbers: answer
+    ``a`` is to query ``q[which[a]]``, its rows ``ans_rows[a]`` (-1: an id
+    no live row has) and distances ``ans_d[a]``; ``ref_d``, ``ref_rows``
+    are ``exact_topk`` of ``q`` over ``x``. Returns ``{"bad_rows",
+    "dist_err", "rank_gap", "hits", "answers"}``: the widest gaps over the
+    answers that are not bad, and the reference rows found."""
     dev = x.device
     a_n, k = ans_rows.shape
     srt = np.sort(ans_rows, axis=1)
@@ -133,4 +141,28 @@ def judge(q: np.ndarray, x: torch.Tensor, which: np.ndarray,
         # each reference row found counts once, however often it is returned
         hits += int((ref_rows[w][:, :, None] == rr[:, None, :]).any(2).sum())
     return {"bad_rows": int(bad.sum()), "dist_err": dist_err,
-            "rank_gap": rank_gap, f"miss_at_{k}": 1.0 - hits / max(a_n * k, 1)}
+            "rank_gap": rank_gap, "hits": hits, "answers": a_n}
+
+
+def pool(tallies: list[dict], k: int) -> dict:
+    """The numbers of a run from the ``tally`` of each live state: bad
+    answers summed, the widest ``dist_err`` and ``rank_gap``, and
+    ``miss_at_<k>`` over every answer judged (reference rows missed over
+    answers x k, not a mean of the states' shares)."""
+    answers = sum(t["answers"] for t in tallies)
+    hits = sum(t["hits"] for t in tallies)
+    return {"bad_rows": sum(t["bad_rows"] for t in tallies),
+            "dist_err": max([0.0, *(t["dist_err"] for t in tallies)]),
+            "rank_gap": max([0.0, *(t["rank_gap"] for t in tallies)]),
+            f"miss_at_{k}": 1.0 - hits / max(answers * k, 1)}
+
+
+def judge(q: np.ndarray, x: torch.Tensor, which: np.ndarray,
+          ans_rows: np.ndarray, ans_d: np.ndarray, ref_d: torch.Tensor,
+          ref_rows: torch.Tensor, metric: str, block: int = 1024) -> dict:
+    """The numbers of ``A`` answers over one live set (``tally``'s
+    arguments): ``{"bad_rows", "dist_err", "rank_gap", "miss_at_<k>"}``
+    (the last three over the answers that are not bad, with ``miss`` over
+    all)."""
+    return pool([tally(q, x, which, ans_rows, ans_d, ref_d, ref_rows, metric,
+                       block)], ans_rows.shape[1])

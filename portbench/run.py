@@ -11,9 +11,22 @@ is what the traffic's engine (``engines/<name>.py``) makes it: its
 ``search`` of a pool batch (numpy queries in, external ids and distances
 out as numpy), the pool cycled. After the window it reads the peak device
 memory, frees the index, judges a seeded sample of every request's answers
-against the float64 reference (``reference.py``) over the live rows (the
-engine's ``live_rows(run)``, else ``seeded_rows``) and checks that no
-module of JAX or of the JAX package was loaded.
+against the float64 reference (``reference.py``) over the rows that were
+live when the answer was given, and checks that no module of JAX or of the
+JAX package was loaded.
+
+The live rows: an engine whose requests change them (a delete, an insert, a
+new vector under an existing id) keeps a state counter, ``run.epoch``: an
+int that each such request raises before its own search. The run stores
+the counter's value after each request with that request's answers, and
+judges the answers of each state against the engine's ``live_rows(run,
+state)``, a state at a time in ascending order (so that the engine can
+replay its writes forward once from the seed), pooling the numbers over the
+states. An answer given from an older state than its request reports is
+judged against the newer rows, and fails. An engine that leaves
+``run.epoch`` None writes nothing that an answer could hold: its answers
+are judged against one live set, its ``live_rows(run)``, else
+``seeded_rows``.
 
 ``--trace 0`` reports the cell's end-to-end metrics; ``--trace 1`` runs
 the same window under ``torch.profiler`` and reports its per-layer metrics,
@@ -149,12 +162,14 @@ class Run:
         self.batch = int(self.p["queries_per_request"])
         self.k = int(self.p["k"])
         self.latencies: list[float] = []
-        self.kept: list[tuple] = []  # (pool batch, rows, ids, dists)
+        self.kept: list[tuple] = []  # (pool batch, rows, ids, dists, state)
+        self.epoch: int | None = None  # the live state; see the module's doc
         self.attempted = self.failed = self.answered = self.written = 0
         self.errors: list[str] = []
         self.window_s = 0.0
         self.trace: Trace | None = None
         self.numbers: dict = {}
+        self.states = 0  # live states judged
         self.memory_peak = 0
         self.check_rows = CHECK_ROWS
 
@@ -216,7 +231,8 @@ class Run:
                 if b is not None:
                     self.answered += len(ids)
                     rows = rng.integers(0, len(ids), self.check_rows)
-                    self.kept.append((b, rows, ids[rows], dists[rows]))
+                    self.kept.append((b, rows, ids[rows], dists[rows],
+                                      self.epoch))
             self.latencies.append(end - t)
             i += 1
         self.window_s = end - start
@@ -244,10 +260,10 @@ class Run:
         if self.device.type == "cuda":
             torch.cuda.empty_cache()
 
-    def judged_queries(self) -> tuple[np.ndarray, np.ndarray]:
-        """The distinct queries of the kept answers, and which of them each
-        kept answer is to."""
-        pairs = np.array([(p, r) for p, rows, _, _ in self.kept for r in rows],
+    def judged_queries(self, kept: list[tuple]) -> tuple[np.ndarray, np.ndarray]:
+        """The distinct queries of the ``kept`` answers, and which of them
+        each kept answer is to."""
+        pairs = np.array([(p, r) for p, rows, *_ in kept for r in rows],
                          np.int64).reshape(-1, 2)
         uniq, which = np.unique(pairs, axis=0, return_inverse=True)
         q = np.zeros((len(uniq), self.p["dim"]), np.float32)
@@ -255,27 +271,36 @@ class Run:
             q[j] = self.pool[p][r]
         return q, which.reshape(-1)
 
-    def answers(self, ext: np.ndarray):
-        """The kept answers as rows of the live set whose ids are ``ext``
-        (-1 for an id that no live row has)."""
-        if not self.kept:
-            return (np.zeros((0, self.k), np.int64),
-                    np.zeros((0, self.k), np.float32))
-        ids = np.concatenate([a for _, _, a, _ in self.kept])
-        dists = np.concatenate([d for _, _, _, d in self.kept])
+    def answers(self, kept: list[tuple], ext: np.ndarray):
+        """The ``kept`` answers as rows of the live set whose ids are
+        ``ext`` (-1 for an id that no live row has)."""
+        ids = np.concatenate([a[2] for a in kept])
+        dists = np.concatenate([a[3] for a in kept])
         return data.rows_of(ids, ext), dists.astype(np.float32)
 
-    def judge(self):
-        """Judge the kept answers against the exact top-k over the live
-        rows; returns what the controls need: the queries judged, the live
-        rows and their exact top-k."""
-        q, which = self.judged_queries()
-        x, ext = self.live_rows(self)
-        ref_d, ref_rows = reference.exact_topk(q, x, self.k, self.p["metric"])
-        rows, dists = self.answers(ext)
-        self.numbers = reference.judge(q, x, which, rows, dists, ref_d,
-                                       ref_rows, self.p["metric"])
-        return q, x, ref_d, ref_rows
+    def judge(self, visit=None) -> None:
+        """Judge each kept answer against the exact top-k over the rows live
+        in its state, a state at a time in ascending order, with one
+        state's live rows on the device at a time; pool the numbers over
+        the states into ``numbers``. ``visit(q, x, ref_d, ref_rows)``, where
+        given, sees each state's distinct queries, live rows and their exact
+        top-k (the controls answer them)."""
+        tallies = []
+        for state in sorted({a[4] for a in self.kept}):
+            kept = [a for a in self.kept if a[4] == state]
+            q, which = self.judged_queries(kept)
+            # an engine that keeps no state counter has one live set
+            x, ext = (self.live_rows(self) if state is None
+                      else self.live_rows(self, state))
+            ref_d, ref_rows = reference.exact_topk(q, x, self.k, self.p["metric"])
+            rows, dists = self.answers(kept, ext)
+            tallies.append(reference.tally(q, x, which, rows, dists, ref_d,
+                                           ref_rows, self.p["metric"]))
+            if visit is not None:
+                visit(q, x, ref_d, ref_rows)
+            del x, ext, ref_d, ref_rows
+        self.states = len(tallies)
+        self.numbers = reference.pool(tallies, self.k)
 
     def checks(self, numbers: dict | None = None) -> dict:
         """Each number judged (the run's, or ``numbers``), beside its

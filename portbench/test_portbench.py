@@ -21,9 +21,9 @@ import pytest
 import torch
 
 from portbench import data, reference
-from portbench.control import readings
+from portbench.control import control_numbers, readings
 from portbench.peaks import bound_s
-from portbench.run import ROOT, Bench, Run, foreign_modules, run_cell
+from portbench.run import ROOT, Bench, Run, foreign_modules, run_cell, seeded_rows
 from portbench.trace import Cover, Trace, handwritten_kernels
 
 SPEC = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -186,6 +186,186 @@ def test_engine_file_owns_requests_and_live_rows(tmp_path):
     x, ext = run.live_rows(run)
     # the two warm-up requests wrote a row each too
     assert len(ext) == len(x) == TINY["rows"] + run.written + 2
+
+
+# ── answers judged against the live rows of their own state ──
+
+CHURN_DELETES, CHURN_UPSERTS, CHURN_INSERTS = 16, 4, 8
+
+
+def _churn_request(run, i, stale=False):
+    """A request that writes, on a real ``HnswIndex(device="cpu")``: it
+    deletes the top id of 16 queries of the last answer to its pool batch,
+    gives 4 other ids of that answer new vectors near the batch's queries,
+    and inserts 8 rows near them under new ids, so that the writes change
+    what this batch's answers hold; it raises ``run.epoch`` and searches
+    (``stale``: searches first, over the state before its writes)."""
+    if getattr(run, "log", None) is None:
+        run.log, run.live, run.last = [], set(run.ids.tolist()), {}
+        run.next_id = int(run.ids.max()) + 1
+    b = i % len(run.pool)
+    queries = run.pool[b]
+    if stale:
+        ids, dists = run.engine.search(run.index, queries, run.k, run.p)
+    rng = np.random.default_rng([run.seed, 3, i])
+    last = run.last.get(b)
+    gone = ups = np.zeros(0, np.int64)
+    if last is not None:
+        rows = rng.choice(len(last), CHURN_DELETES, replace=False)
+        gone = np.array([j for j in dict.fromkeys(last[rows, 0].tolist())
+                         if j in run.live], np.int64)
+        spare = [j for j in dict.fromkeys(last[:, 1:].reshape(-1).tolist())
+                 if j in run.live and j not in set(gone.tolist())]
+        ups = np.array(spare[:CHURN_UPSERTS], np.int64)
+    new = np.arange(run.next_id, run.next_id + CHURN_INSERTS, dtype=np.int64)
+    run.next_id += CHURN_INSERTS
+    put = np.concatenate([ups, new])
+    near = torch.from_numpy(queries[rng.choice(len(queries), len(put), replace=False)])
+    vecs = near + 0.01 * torch.from_numpy(
+        rng.standard_normal(near.shape).astype(np.float32))
+    vecs /= torch.linalg.norm(vecs, dim=1, keepdim=True)
+    run.index.delete(np.concatenate([gone, ups]))
+    run.index.insert(put, vecs)
+    run.live -= set(gone.tolist())
+    run.live |= set(new.tolist())
+    run.log.append((np.concatenate([gone, ups]), put, vecs))
+    run.epoch = len(run.log)
+    if not stale:
+        ids, dists = run.engine.search(run.index, queries, run.k, run.p)
+    run.last[b] = ids
+    return b, ids, dists, len(gone) + len(ups) + len(put)
+
+
+def _churn_live_rows(run, state=None):
+    """The rows live once the first ``state`` writes were made (all of
+    them: None), replayed from the seed and the engine's log of ids and
+    vectors written."""
+    x, ids = seeded_rows(run)
+    for gone, put, vecs in run.log[: len(run.log) if state is None else state]:
+        keep = ~np.isin(ids, gone)
+        x = torch.cat([x[torch.from_numpy(keep)], vecs])
+        ids = np.concatenate([ids[keep], put])
+    return x, ids
+
+
+def churn_run(stale=False) -> Run:
+    """A tiny run of the HNSW cell whose requests are ``_churn_request``."""
+    bench = TinyBench()
+    run = Run(bench, bench.cell("c100k-384.hnsw"), SEED, "cpu")
+    run.request = lambda run, i: _churn_request(run, i, stale)
+    run.live_rows = _churn_live_rows
+    run.setup(time.perf_counter())
+    run.window(0.6)
+    run.close()
+    run.judge()
+    return run
+
+
+def test_each_answer_is_judged_against_its_own_live_rows():
+    """Requests that delete, upsert and insert rows before their search:
+    correct under the judge of each state, and not against the last state
+    alone, where rows deleted after an answer are ids no live row has."""
+    run = churn_run()
+    assert run.failed == 0 and run.written > 0
+    assert run.correct, run.checks()
+    assert run.states == len({a[4] for a in run.kept}) > 1
+    run.kept = [(*a[:4], run.epoch) for a in run.kept]
+    run.judge()
+    assert run.states == 1 and run.numbers["bad_rows"] > 0
+
+
+def test_answer_from_before_its_writes_is_not_correct():
+    """An engine that searches before its writes and reports the state
+    after them gives answers from an older state than it claims."""
+    run = churn_run(stale=True)
+    assert run.failed == 0 and run.states > 1
+    assert not run.correct, run.checks()
+
+
+def _judge_as_before(q, x, which, ans_rows, ans_d, ref_d, ref_rows, metric,
+                     block=1024) -> dict:
+    """The judge over one live set as it was before states were judged
+    apart, kept as the reference that one state must equal bit for bit."""
+    dev = x.device
+    a_n, k = ans_rows.shape
+    srt = np.sort(ans_rows, axis=1)
+    dup = ((srt[:, 1:] == srt[:, :-1]) & (srt[:, 1:] >= 0)).any(1)
+    finite = np.isfinite(ans_d)
+    desc = (np.diff(np.where(finite, ans_d, np.inf), axis=1) < 0).any(1)
+    bad = (ans_rows < 0).any(1) | dup | ~finite.all(1) | desc
+    dist_err = rank_gap = 0.0
+    hits = 0
+    for s in range(0, a_n, block):
+        sl = slice(s, s + block)
+        w = torch.from_numpy(which[sl]).to(dev)
+        rr = torch.from_numpy(ans_rows[sl]).to(dev)
+        known = rr >= 0
+        qb = torch.from_numpy(q[which[sl]]).to(dev, torch.float64)
+        d64 = reference.row_distances64(qb, x[rr.clamp(min=0)].double(), metric)
+        ad = torch.from_numpy(ans_d[sl]).to(dev, torch.float64)
+        ok = known & torch.isfinite(ad)
+        if bool(ok.any()):
+            dist_err = max(dist_err, float((ad - d64).abs()[ok].max()))
+        good = torch.from_numpy(~bad[sl]).to(dev)
+        if bool(good.any()):
+            gap = (d64 - ref_d[w])[good]
+            rank_gap = max(rank_gap, float(gap.max()))
+        hits += int((ref_rows[w][:, :, None] == rr[:, None, :]).any(2).sum())
+    return {"bad_rows": int(bad.sum()), "dist_err": dist_err,
+            "rank_gap": rank_gap, f"miss_at_{k}": 1.0 - hits / max(a_n * k, 1)}
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_one_state_judges_as_before(name):
+    """An engine without a state counter: the program's and the controls'
+    numbers are those of one judge over every kept answer and one live
+    set, bit for bit."""
+    run = tiny_run(name)
+    controls = {c: run.bench.module("controls", c) for c in run.p["controls"]}
+    got = control_numbers(run, controls)
+    assert run.states == 1
+    kept = run.kept
+    q, which = run.judged_queries(kept)
+    x, ext = run.live_rows(run)
+    ref_d, ref_rows = reference.exact_topk(q, x, run.k, run.p["metric"])
+    rows, dists = run.answers(kept, ext)
+    want = _judge_as_before(q, x, which, rows, dists, ref_d, ref_rows,
+                            run.p["metric"])
+    assert run.numbers == want
+    for c, mod in controls.items():
+        c_rows, c_dists = mod.answer(run, q, x)
+        assert got[c] == _judge_as_before(q, x, np.arange(len(q)), c_rows, c_dists,
+                                          ref_d, ref_rows, run.p["metric"])
+
+
+@pytest.mark.parametrize("name", CELLS)
+def test_split_states_pool_to_one_states_numbers(name):
+    """One state's answers split into two states over the same live set
+    pool to the numbers of the one."""
+    run = tiny_run(name)
+    one = dict(run.numbers)
+    half = len(run.kept) // 2
+    assert half >= 1
+    run.kept = [(*a[:4], int(j >= half)) for j, a in enumerate(run.kept)]
+    run.live_rows = lambda run, state: seeded_rows(run)
+    run.judge()
+    assert run.states == 2 and run.numbers == one
+
+
+def test_churn_probe_judges_each_state():
+    """``probes/churn_judge.py`` at a tiny size: its waves, deletes and
+    searches are correct under the judge of each state, and not against the
+    last state alone."""
+    from portbench.probes import churn_judge
+
+    run = churn_judge.churn_run(TinyBench(), SEED, "cpu",
+                                sizes={"inserts": 64, "deletes": 32, "queries": 64})
+    out = churn_judge.probe(run, 0.6, time.perf_counter())
+    assert out["failed"] == 0 and out["correct"], out["checks"]
+    assert out["states"] == out["requests"] > 1
+    assert out["end_state_checks"]["bad_rows"][0] > 0
+    assert out["store_after"]["high_watermark"] == (
+        TINY["rows"] + 64 * (out["requests"] + 2))
 
 
 def test_open_loop_arrivals_count_their_wait():
