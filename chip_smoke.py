@@ -137,9 +137,11 @@ Phases, each of which exits non-zero on failure:
    ``delete_repair_per_s``), slots 0..8,191 in all; every wave's
    ``flat_topk`` launch the tensor-core kernel's, every repair launch the
    f32 kernel's; no live edge (level 0 or, after the queued promotions are
-   wired, above) points at a tombstone; the first 2,048 queries searched at
-   k=10, ef=32 by the row path (no repack), the fused beam after
-   ``pack_neighbors()`` (``beam_step`` launched) and ``beam_whole``
+   wired, above) points at a tombstone; the packed table kept through the
+   churn, its marked rows re-gathered, equal to a whole gather; the first
+   2,048 queries searched at k=10, ef=32 by the row path (no table within a
+   zero ``pack_budget_bytes``), the fused beam after ``pack_neighbors()``
+   (``beam_step`` launched) and ``beam_whole``
    (``beam_loop`` launched): no deleted id, exact distances, recall@10
    against exact ``highest`` over the live rows at least 0.95 each;
    ``beam_step`` against plain over the fused search's beam of those 2,048
@@ -3103,10 +3105,19 @@ def main() -> int:
         check(rec >= MIN_HNSW_RECALL, f"{what} recall@{k} {rec} < {MIN_HNSW_RECALL}")
         return rec
 
-    check(hnsw._maybe_packed() is None, "churn repacked the neighbour table")
+    # the table kept through churn, its marked rows re-gathered, against a
+    # whole gather
+    kept15 = hnsw._maybe_packed()
+    check(kept15 is not None and torch.equal(
+        kept15, hnsw._vecs16()[hnsw.neighbors0.clamp(min=0).long()]),
+          "the packed table kept through churn is not a whole gather")
+    del kept15
     churn15 = {}
+    budget15 = hnsw.pack_budget_bytes
     for engine in ("row", "fused", "whole"):
-        if engine == "fused":
+        # the row path: no table within a zero budget
+        hnsw.pack_budget_bytes = 0 if engine == "row" else budget15
+        if engine != "whole":
             hnsw.pack_neighbors()
         hnsw.beam_whole = engine == "whole"
         _build.reset_launches()

@@ -86,6 +86,7 @@ def _restore_store(store, vectors: torch.Tensor, valid: np.ndarray,
     store._slot_of = dict(zip(ids[live].tolist(), live.tolist()))
     store._count = count
     store._high = hw
+    store.reset_free()
 
 
 def flat_index_from_numpy(state: dict,
@@ -166,12 +167,14 @@ def quantized_index_to_numpy(index: QuantizedFlatIndex) -> dict:
     }
 
 
-def hnsw_index_from_numpy(state: dict,
-                          device: str | torch.device = "cuda") -> HnswIndex:
+def hnsw_index_from_numpy(state: dict, device: str | torch.device = "cuda",
+                          reuse_slots: bool = True) -> HnswIndex:
     """Build an ``HnswIndex`` on ``device`` from ``state`` (see the module
     docstring). Its capacity is that of ``state``; the slot map is rebuilt
-    from ``ids``. The packed neighbour table is built as after a bulk
-    build: at the first search on a CUDA device."""
+    from ``ids``, and with ``reuse_slots`` (``HnswIndex``'s knob) the free
+    slots and upper-level rows from ``ids`` and ``hi_index``. The packed
+    neighbour table is built as after a bulk build: at the first search on
+    a CUDA device."""
     a = {k: np.asarray(state[k], t) for k, t in _HNSW_ARRAYS.items()}
     sc = {k: int(state[k]) for k in _HNSW_SCALARS}
     cap, dim, m = a["vectors"].shape[0], sc["dim"], sc["m"]
@@ -194,7 +197,7 @@ def hnsw_index_from_numpy(state: dict,
 
     index = HnswIndex(dim, str(state["metric"]), m=m,
                       ef_construction=sc["ef_construction"], capacity=cap,
-                      device=device)
+                      device=device, reuse_slots=reuse_slots)
     dev = index.device
     _restore_store(index.store, torch.tensor(a["vectors"]), a["valid"],
                    a["ids"], sc["high_watermark"], sc["count"])
@@ -205,6 +208,7 @@ def hnsw_index_from_numpy(state: dict,
     index._hi_index_np = a["hi_index"].copy()
     index.hi_neighbors = torch.tensor(hn, device=dev)
     index._hi_count = sc["hi_count"]
+    index._reset_hi_free()
     index.entry_point = sc["entry_point"]
     index.max_level = sc["max_level"]
     return index

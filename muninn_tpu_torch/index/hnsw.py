@@ -26,6 +26,13 @@ repair, and every search route.
   drops those edges and refills from the deleted nodes' former
   neighbourhoods (``flat_topk`` at ``highest``); the entry point is
   rescanned when it died.
+- Slots: with ``reuse_slots`` (the default) a wave takes the slots and
+  upper-level rows that deletes freed, lowest first, before new ones, so
+  that steady churn keeps the capacity; the JAX package never reuses a
+  slot (``reuse_slots=False`` keeps its slot numbers). A write keeps the
+  search's bf16 / int8 shadows and packed table: it patches the shadow
+  rows it wrote and marks in a device mask every row whose neighbours
+  changed, and the next search re-gathers those rows alone.
 - Search: exact routing over the promoted pool (``flat_topk`` at
   ``precision="default"``), a level-0 beam guided by bf16 vectors, or by
   int8 ones with one scale per row (``search_quant = "int8"``), whose
@@ -84,7 +91,7 @@ from muninn_tpu_torch.ops.topk import (
     smallest_k,
     sorted_topk_unique,
 )
-from muninn_tpu_torch.tracing import host_read, span
+from muninn_tpu_torch.tracing import host_read, request, span
 
 HNSW_MAX_LEVELS = 32  # the reference's cap, src/hnsw_algo.h:14
 _SWEEP_ROWS = 8192    # rows per chunk of the bulk kNN sweep and the prune
@@ -516,7 +523,9 @@ class HnswIndex:
     ``beam_patience``, ``beam_max_iters``, ``beam_dedup``,
     ``search_degree``, ``beam_topm``, ``beam_whole``, ``beam_pick_xfer``,
     ``pack_budget_bytes``, ``exact_small_n``; ``seed_rng(seed)`` resets the
-    level sampling. ``device`` is the card unless ``device="cpu"``.
+    level sampling. ``reuse_slots`` (default True) lets waves take the slots
+    that deletes freed; False keeps the JAX package's slot numbers. ``device``
+    is the card unless ``device="cpu"``.
     """
 
     def __init__(
@@ -532,12 +541,14 @@ class HnswIndex:
         wave_size: int = 1024,
         mn_ru: bool = True,
         device: str | torch.device = "cuda",
+        reuse_slots: bool = True,
     ):
         if m < 2:
             raise ValueError("m must be >= 2")
         self.params = HnswParams(int(dim), parse_metric(metric), int(m),
                                  int(ef_construction))
-        self.store = VectorStore(dim, capacity, device=device)
+        self.store = VectorStore(dim, capacity, device=device,
+                                 reuse_slots=reuse_slots)
         self.device = self.store.device
         self.m = int(m)
         self.m0 = 2 * int(m)  # M_max0 = 2*M, src/hnsw_algo.c:188
@@ -565,6 +576,8 @@ class HnswIndex:
             device=self.device,
         )
         self._hi_count = 0
+        # upper-level rows freed by deletes, ascending (with reuse_slots)
+        self._hi_free = np.zeros(0, np.int32)
         # promotions of insert waves, (slots, levels), wired into the upper
         # levels by _flush_hi_wiring
         self._hi_pending: list[tuple[np.ndarray, np.ndarray]] = []
@@ -603,9 +616,9 @@ class HnswIndex:
         # the same results either way
         self.beam_pick_xfer = "dma"
         # the packed [cap, R0, d] bf16 (or int8, with [cap, R0] scales)
-        # neighbour table: built at the first search after a bulk build on
-        # a CUDA device when it fits the budget; on the CPU only through
-        # pack_neighbors()
+        # neighbour table: built whole at the first search on a CUDA device
+        # when it fits the budget (on the CPU only through pack_neighbors()),
+        # then kept through writes, its changed rows re-gathered
         self.pack_budget_bytes = 4 << 30
         # at or below this many stored rows, search is exact flat_topk
         self.exact_small_n = 8192
@@ -614,7 +627,11 @@ class HnswIndex:
         self._packed: torch.Tensor | None = None
         self._packed_scales: torch.Tensor | None = None
         self._packed_quant = "bf16"  # the guidance the packed table holds
-        self._packed_auto = True
+        # rows of the packed table that writes changed ([cap] bool on the
+        # device), and their slots once a write ended: the next search
+        # re-gathers them
+        self._dirty: torch.Tensor | None = None
+        self._dirty_rows: torch.Tensor | None = None
         self._v16: torch.Tensor | None = None
         self._v8: tuple[torch.Tensor, torch.Tensor] | None = None
         self._pool_vecs_cache: torch.Tensor | None = None
@@ -642,6 +659,7 @@ class HnswIndex:
         old = self.neighbors0.shape[0]
         if cap == old:
             return
+        self._drop_search_tables()  # built again whole at the next search
         grow = cap - old
         self.neighbors0 = torch.nn.functional.pad(
             self.neighbors0, (0, 0, 0, grow), value=-1)
@@ -654,6 +672,23 @@ class HnswIndex:
                                    constant_values=-1)
         need_hi = max(cap // max(self.m // 2, 2), 64)
         self._grow_hi(need_hi)
+
+    def _alloc_hi(self, n: int) -> np.ndarray:
+        """``n`` upper-level rows: freed ones first, lowest first (with
+        ``reuse_slots``), then new ones from ``_hi_count``."""
+        take = self._hi_free[:n] if self.store.reuse_slots else self._hi_free[:0]
+        self._hi_free = self._hi_free[len(take):]
+        fresh = np.arange(self._hi_count, self._hi_count + n - len(take),
+                          dtype=np.int32)
+        self._hi_count += len(fresh)
+        return np.concatenate([take, fresh])
+
+    def _reset_hi_free(self) -> None:
+        """Rebuild the free upper-level rows: those below ``_hi_count`` that
+        no slot holds (none without ``reuse_slots``)."""
+        used = self._hi_index_np[self._hi_index_np >= 0]
+        self._hi_free = (np.setdiff1d(np.arange(self._hi_count, dtype=np.int32), used)
+                         if self.store.reuse_slots else np.zeros(0, np.int32))
 
     def _grow_hi(self, rows: int) -> None:
         have = self.hi_neighbors.shape[0]
@@ -773,8 +808,8 @@ class HnswIndex:
         first ``search_degree`` columns when that is below ``2M``
         (``hnsw.py:850-869``). The slices are copied once and cached, keyed
         on the knob and the identity of the source tables, which the cache
-        keeps alive so that the identity stays sound; every mutation of the
-        graph goes through ``_invalidate_search_caches``, which drops it."""
+        keeps alive so that the identity stays sound; every write drops it
+        (``_after_write``), since a patch in place keeps the identity."""
         sd = self.search_degree
         if not sd or sd >= self.m0:
             return self.neighbors0, packed, pscales
@@ -861,19 +896,54 @@ class HnswIndex:
             self._pool_vecs_cache = self.store.vectors[pool.clamp(min=0).long()]
         return self._pool_vecs_cache
 
-    def _invalidate_search_caches(self) -> None:
+    def _drop_search_tables(self) -> None:
+        """Drop every search cache: the shadows, the packed table and its
+        dirty rows (a bulk build, a change of capacity)."""
         self._v16 = None
         self._v8 = None
-        self._pool_vecs_cache = None
         self._packed = None
         self._packed_scales = None
+        self._dirty = None
+        self._dirty_rows = None
+        self._after_write()
+
+    def _after_write(self) -> None:
+        """What any write drops: the routing pool's rows and the
+        ``search_degree`` slices, whose keys a patch in place keeps."""
+        self._pool_vecs_cache = None
         self._sd_cache = None
-        self._packed_auto = False  # a bulk build turns it back on
+
+    def _patch_shadows(self, slots: torch.Tensor, rows: torch.Tensor) -> None:
+        """Write the guidance shadows' rows of ``slots`` from their new f32
+        ``rows``, as a whole conversion of the store would give them."""
+        if self._v16 is not None:
+            self._v16[slots] = rows.bfloat16()
+        if self._v8 is not None:
+            self._v8[0][slots], self._v8[1][slots] = quantize_rows_int8(rows)
+
+    def _mark_dirty(self, rows: torch.Tensor) -> None:
+        """Mark rows (device slots, or a ``[cap]`` mask) whose neighbours
+        changed, for the next search to re-gather from a kept packed table;
+        no host read."""
+        if self._packed is None:
+            return  # the next pack is whole
+        if self._dirty is None:
+            self._dirty = torch.zeros(self.neighbors0.shape[0], dtype=torch.bool,
+                                      device=self.device)
+        if rows.dtype == torch.bool:
+            self._dirty |= rows
+        else:
+            self._dirty[rows] = True
+
+    def _settle_dirty(self) -> None:
+        """At the end of a write: the marked rows as slots, for the next
+        search's re-gather."""
+        if self._dirty is not None and self._packed is not None:
+            self._dirty_rows = self._dirty.nonzero().squeeze(1)
 
     def pack_neighbors(self) -> None:
-        """(Re)build the packed neighbour table for the current
-        ``search_quant``, on any device, and turn packing back on."""
-        self._packed_auto = True
+        """(Re)build the packed neighbour table whole for the current
+        ``search_quant``, on any device."""
         self._packed = None
         self._packed_scales = None
         self._sd_cache = None
@@ -882,29 +952,46 @@ class HnswIndex:
     def _maybe_packed(self, force: bool = False) -> torch.Tensor | None:
         """The packed ``[cap, R0, d]`` table of the beam's guidance,
         ``v16[neighbors0]`` (bf16), or ``v8[neighbors0]`` (int8) with the
-        neighbours' scales in ``_packed_scales [cap, R0]``; rebuilt when
-        ``search_quant`` changed (``hnsw.py:1007-1032``). Built on a CUDA
-        device when packing is on, on the CPU only when ``force``d; None
-        over ``pack_budget_bytes``."""
+        neighbours' scales in ``_packed_scales [cap, R0]`` (``-1`` gathers
+        slot 0, as the clamp does). Built whole on a CUDA device, on the CPU
+        only when ``force``d, None over ``pack_budget_bytes``; rebuilt whole
+        when ``search_quant`` changed (``hnsw.py:1007-1032``). A kept table
+        first re-gathers the rows that writes marked (``hnsw.repack``)."""
         int8 = self._int8_guidance()
         if self._packed is not None and self._packed_quant == self.search_quant:
+            if self._dirty_rows is not None:
+                self._repack_rows(self._dirty_rows)
             return self._packed
-        if self._packed is None and not (self._packed_auto or force):
-            return None
         need = self.store.capacity * self.m0 * self.dim * (1 if int8 else 2)
         if need > self.pack_budget_bytes:
             return None
         if self.device.type == "cpu" and not force:
             return None  # CPU: keep the row path exercised
-        # one gather of the whole table, not one per row
-        nb = self.neighbors0.clamp(min=0).long()
-        if int8:
-            vi, sc = self._vecs8()
-            self._packed, self._packed_scales = vi[nb], sc[nb]
-        else:
-            self._packed, self._packed_scales = self._vecs16()[nb], None
+        with span("hnsw.repack", rows=self.neighbors0.shape[0], whole=1):
+            # one gather of the whole table, not one per row
+            nb = self.neighbors0.clamp(min=0).long()
+            if int8:
+                vi, sc = self._vecs8()
+                self._packed, self._packed_scales = vi[nb], sc[nb]
+            else:
+                self._packed, self._packed_scales = self._vecs16()[nb], None
         self._packed_quant = self.search_quant
+        self._dirty = self._dirty_rows = None
         return self._packed
+
+    def _repack_rows(self, rows: torch.Tensor) -> None:
+        """Re-gather the packed rows ``rows`` from the shadow the table was
+        built from, and clear the marks."""
+        with span("hnsw.repack", rows=rows.shape[0], whole=0):
+            nb = self.neighbors0[rows].clamp(min=0).long()
+            if self._packed_quant == "int8":
+                vi, sc = self._vecs8()
+                self._packed[rows], self._packed_scales[rows] = vi[nb], sc[nb]
+            else:
+                self._packed[rows] = self._vecs16()[nb]
+            self._dirty.zero_()
+        self._dirty_rows = None
+        self._sd_cache = None
 
     def _routing_pool(self) -> torch.Tensor | None:
         """Promoted (level >= 1) slots, -1-padded to a power of two; None
@@ -930,23 +1017,35 @@ class HnswIndex:
         ``wave_size`` rows (``_insert_wave``). An ``insert_mode`` outside
         ``INSERT_MODES`` raises ``ValueError`` before anything changes; an id
         already stored or repeated raises it as its bulk batch or wave is
-        registered, the waves before it staying inserted, as in JAX."""
+        registered, the waves before it staying inserted, as in JAX. The
+        ``index.insert`` span records the slots' state when it ends."""
         if self.insert_mode not in INSERT_MODES:
             raise ValueError(f"insert_mode must be one of {INSERT_MODES}, got"
                              f" {self.insert_mode!r}")
         ids = np.asarray(ids, np.int64).reshape(-1)
-        self._invalidate_search_caches()
-        vecs = torch.as_tensor(vectors, dtype=torch.float32)
-        vecs = vecs.reshape(len(ids), self.dim).to(self.device)
-        if len(self) == 0 and len(ids) >= 4 * self.wave_size:
-            self._bulk_build(ids, vecs)
-            return
-        for s in range(0, len(ids), self.wave_size):
-            self._insert_wave(ids[s : s + self.wave_size],
-                              vecs[s : s + self.wave_size])
+        with request("index.insert", rows=len(ids)) as sp:
+            vecs = torch.as_tensor(vectors, dtype=torch.float32)
+            vecs = vecs.reshape(len(ids), self.dim).to(self.device)
+            try:
+                if len(self) == 0 and len(ids) >= 4 * self.wave_size:
+                    self._bulk_build(ids, vecs)
+                else:
+                    for s in range(0, len(ids), self.wave_size):
+                        wave = ids[s : s + self.wave_size]
+                        with span("hnsw.wave", rows=len(wave)):
+                            self._insert_wave(wave, vecs[s : s + self.wave_size])
+            finally:
+                self._settle_dirty()
+                sp.set(**self._slot_state())
+
+    def _slot_state(self) -> dict:
+        st = self.store
+        return {"high_watermark": st.high_watermark, "live": len(st),
+                "capacity": st.capacity}
 
     def _bulk_build(self, ids: np.ndarray, vectors) -> None:
         n = len(ids)
+        self._drop_search_tables()  # a new graph: packed whole when searched
         slots = self.store.add(ids, vectors)
         self._sync_capacity()
         levels = self._sample_levels(n)
@@ -956,9 +1055,7 @@ class HnswIndex:
 
         promoted = np.nonzero(levels >= 1)[0]
         if len(promoted):
-            hi_rows = np.arange(self._hi_count, self._hi_count + len(promoted),
-                                dtype=np.int32)
-            self._hi_count += len(promoted)
+            hi_rows = self._alloc_hi(len(promoted))
             if self._hi_count > self.hi_neighbors.shape[0]:
                 self._grow_hi(2 * self._hi_count)
             self.hi_index[torch.as_tensor(slots[promoted], dtype=torch.long,
@@ -969,10 +1066,13 @@ class HnswIndex:
 
         # exact kNN rows: the corpus against itself, +1 for the self-match
         corpus = self.store.vectors[: self.store.high_watermark]
-        # an index emptied by deletes keeps its dead rows below the batch:
-        # masked, unlike JAX's sweep (hnsw.py:1170), which wires them in
+        # an index emptied by deletes keeps its dead rows below the batch
+        # (without reuse_slots): masked, unlike JAX's sweep (hnsw.py:1170),
+        # which wires them in
         valid = self.store.valid[: self.store.high_watermark]
-        base = int(slots[0])  # bulk slots are contiguous
+        # bulk slots are contiguous: appended, or with reuse_slots every
+        # slot of the empty index from 0 on
+        base = int(slots[0])
         chunks_i, chunks_d = [], []
         for s in range(0, n, _SWEEP_ROWS):
             e = min(s + _SWEEP_ROWS, n)
@@ -1003,7 +1103,6 @@ class HnswIndex:
                         slots_t[s : s + _SWEEP_ROWS], self.m0)
         if len(promoted):
             self._wire_upper_levels(slots, levels, promoted)
-        self._packed_auto = True  # a bulk build is a settled graph
 
     def _wire_upper_levels(self, slots, levels, promoted) -> None:
         """Wire the promoted nodes at each level 1..their level: exact
@@ -1057,7 +1156,9 @@ class HnswIndex:
         (src/hnsw_algo.c:660-663). Promoted nodes join the routing pool at
         once and the upper levels at the next ``_flush_hi_wiring``. Room is
         reserved for the wave padded to a power of two of at least 64 rows,
-        as the JAX package pads it, so both keep the same capacity."""
+        as the JAX package pads it, so both keep the same capacity; with
+        ``reuse_slots`` the wave takes freed slots first and reserves room
+        only for the rows it appends."""
         w = len(ids)
         first = self.entry_point < 0
         bucket = 1 << int(np.ceil(np.log2(max(w, 64))))
@@ -1076,34 +1177,39 @@ class HnswIndex:
         self.levels[slots] = levels
         promoted = np.nonzero(levels >= 1)[0]
         if len(promoted):
-            hi_rows = np.arange(self._hi_count, self._hi_count + len(promoted),
-                                dtype=np.int32)
-            self._hi_count += len(promoted)
+            hi_rows = self._alloc_hi(len(promoted))
             self._hi_index_np[slots[promoted]] = hi_rows
             self._hi_pending.append((slots[promoted].astype(np.int32),
                                      levels[promoted].astype(np.int32)))
             self._pool_dirty = True
 
-        self._wire_wave(vecs, int(slots[0]), pool, min(self.m0, max(bucket - 1, 1)))
+        slots_t = torch.as_tensor(slots, device=self.device)
+        self._wire_wave(vecs, slots_t, pool, min(self.m0, max(bucket - 1, 1)))
+        if slots[0] == 0:
+            # a -1 entry gathers slot 0's row into the packed table
+            self._mark_dirty((self.neighbors0 < 0).any(dim=1))
         top = int(np.argmax(levels))
         if first or int(levels[top]) > self.max_level:
             self.max_level = int(levels[top])
             self.entry_point = int(slots[top])
 
-    def _wire_wave(self, qv: torch.Tensor, base: int,
+    def _wire_wave(self, qv: torch.Tensor, slots: torch.Tensor,
                    pool: torch.Tensor | None, kk: int) -> None:
         """The level-0 work of a wave, in place (``_insert_wave_fused``,
-        ``hnsw.py:1717-1836``), for rows ``qv`` at the slots from ``base``
-        on: write the rows; candidates from the pre-wave graph (live rows
-        only, so never a wave row or a deleted one), merged with each row's
-        ``kk`` closest wave rows; the closest ``2M`` wired forward; the
-        reverse edges appended to their targets, up to ``2M`` each; those
-        targets pruned back to ``2M`` (MN-RU with ``mn_ru``)."""
+        ``hnsw.py:1717-1836``), for rows ``qv`` at ``slots`` (int32, on the
+        device): write the rows; candidates from the pre-wave graph (live
+        rows only, so never a wave row or a deleted one), merged with each
+        row's ``kk`` closest wave rows; the closest ``2M`` wired forward;
+        the reverse edges appended to their targets, up to ``2M`` each;
+        those targets pruned back to ``2M`` (MN-RU with ``mn_ru``). The
+        shadows' rows are patched, and the rows whose neighbours changed
+        marked for the packed table."""
         w, m0 = qv.shape[0], self.m0
         st = self.store
         hw = st.high_watermark
-        st.vectors[base : base + w] = qv
-        slots = torch.arange(base, base + w, dtype=torch.int32, device=self.device)
+        at = slots.long()
+        st.vectors[at] = qv
+        self._patch_shadows(at, qv)
         if self.insert_mode == "exact":
             # the live rows up to the new high watermark: never an empty
             # corpus, and the wave's own rows are still invalid
@@ -1122,7 +1228,7 @@ class HnswIndex:
             ok = (cand_i >= 0) & st.valid[cand_i.clamp(min=0).long()]
             cand_d = torch.where(ok, cand_d, _INF)
             cand_i = torch.where(ok, cand_i, -1)
-        st.valid[base : base + w] = True
+        st.valid[at] = True
 
         # the wave's rows among themselves (the sequential reference links
         # them by inserting one at a time)
@@ -1132,8 +1238,8 @@ class HnswIndex:
         cand_d, cand_i = merge_topk(cand_d, cand_i, id_, ii)
         sel_d, sel_i = sorted_topk_unique(cand_d, cand_i, m0)
         sel_d = torch.where(sel_i >= 0, sel_d, _INF)
-        self.neighbors0[base : base + w] = sel_i
-        self.dists0[base : base + w] = sel_d
+        self.neighbors0[at] = sel_i
+        self.dists0[at] = sel_d
 
         tgt = sel_i.reshape(-1)
         append_i, append_d = _grouped_bounded_append(
@@ -1141,8 +1247,12 @@ class HnswIndex:
             self.neighbors0.shape[0], m0)
         # each target once: JAX prunes duplicates to the same row
         aff = torch.unique(tgt[tgt >= 0]).long()
-        _prune_rows(self.neighbors0, self.dists0, append_i, append_d, aff, m0,
-                    mn_tiebreak=self.mn_ru)
+        with span("hnsw.prune", rows=aff.shape[0]):
+            _prune_rows(self.neighbors0, self.dists0, append_i, append_d, aff,
+                        m0, mn_tiebreak=self.mn_ru)
+        self._mark_dirty(at)
+        self._mark_dirty(aff)
+        self._after_write()
 
     def _flush_hi_wiring(self) -> None:
         """Wire every queued promotion into the upper levels in one exact
@@ -1177,17 +1287,22 @@ class HnswIndex:
         upper-level edges to them scrubbed, their queued promotions dropped,
         and the entry point rescanned if it died. An unknown id raises
         ``KeyError`` before its wave changes anything (earlier waves stay
-        deleted, as in JAX)."""
-        self._invalidate_search_caches()
+        deleted, as in JAX). With ``reuse_slots`` the freed slots and
+        upper-level rows go to the free lists."""
         ids = np.asarray(ids, np.int64).reshape(-1)
-        if len(ids) == 0:
-            return
-        if len(ids) > self.wave_size:
-            for s in range(0, len(ids), self.wave_size):
-                self.delete(ids[s : s + self.wave_size])
-            return
+        with request("index.delete", rows=len(ids)) as sp:
+            try:
+                for s in range(0, len(ids), self.wave_size):
+                    self._delete_wave(ids[s : s + self.wave_size])
+            finally:
+                self._settle_dirty()
+                sp.set(**self._slot_state())
+
+    def _delete_wave(self, ids: np.ndarray) -> None:
         slots = self.store.unregister(ids)
         self.levels[slots] = -1
+        hi_rows = self._hi_index_np[slots]
+        hi_rows = hi_rows[hi_rows >= 0]
         self._hi_index_np[slots] = -1
         if self._hi_pending:
             self._hi_pending = [(sl[~np.isin(sl, slots)], lv[~np.isin(sl, slots)])
@@ -1203,19 +1318,25 @@ class HnswIndex:
         dmask[slots_t] = True
         nb = self.neighbors0
         refs_dead = ((nb >= 0) & dmask[nb.clamp(min=0).long()]).any(dim=1)
-        aff = np.nonzero(refs_dead.cpu().numpy())[0]
+        aff = np.nonzero(host_read("hnsw_delete_refs", refs_dead))[0]
         aff = aff[~np.isin(aff, slots)]
-        pool = np.unique(nb[slots_t].cpu().numpy())
+        pool = np.unique(host_read("hnsw_delete_pool", nb[slots_t]))
         pool = pool[(pool >= 0) & ~np.isin(pool, slots)]
-        if len(aff) and len(pool):
-            # JAX pads the pool to a power of two of at least 64, which sets k
-            kk = min(self.m0 + 1, len(_pow2_pad(pool)))
-            pool_t = torch.as_tensor(pool, dtype=torch.long, device=dev)
-            pv = self.store.vectors[pool_t]
-            for s in range(0, len(aff), _REPAIR_ROWS):
-                self._repair_rows(
-                    torch.as_tensor(aff[s : s + _REPAIR_ROWS], dtype=torch.long,
-                                    device=dev), pool_t, pv, dmask, kk)
+        aff_t = torch.as_tensor(aff, dtype=torch.long, device=dev)
+        with span("hnsw.repair", rows=len(aff)):
+            if len(aff) and len(pool):
+                # JAX pads the pool to a power of two of at least 64, which
+                # sets k
+                kk = min(self.m0 + 1, len(_pow2_pad(pool)))
+                pool_t = torch.as_tensor(pool, dtype=torch.long, device=dev)
+                pv = self.store.vectors[pool_t]
+                for s in range(0, len(aff), _REPAIR_ROWS):
+                    self._repair_rows(aff_t[s : s + _REPAIR_ROWS], pool_t, pv,
+                                      dmask, kk)
+            elif len(aff) and self.store.reuse_slots:
+                # nothing to refill from; a slot that is taken again must
+                # not keep edges from before
+                self._drop_dead_edges(aff_t, dmask)
 
         # clear the deleted rows, scrub the upper levels
         self.neighbors0[slots_t] = -1
@@ -1224,8 +1345,26 @@ class HnswIndex:
         self.hi_neighbors = torch.where(
             (hn >= 0) & dmask[hn.clamp(min=0).long()], -1, hn)
         self.hi_index[slots_t] = -1
+        if self.store.reuse_slots and len(hi_rows):
+            # rows queued but never wired may lie past the table
+            held = hi_rows[hi_rows < self.hi_neighbors.shape[0]]
+            self.hi_neighbors[torch.as_tensor(held, dtype=torch.long, device=dev)] = -1
+            self._hi_free = np.union1d(self._hi_free, hi_rows).astype(np.int32)
+        self._mark_dirty(aff_t)
+        self._mark_dirty(slots_t)
+        self._after_write()
         if self.entry_point in set(slots.tolist()):
             self._rescan_entry_point()
+
+    def _drop_dead_edges(self, aff: torch.Tensor, dmask: torch.Tensor) -> None:
+        """Rows ``aff`` drop their edges to deleted slots, the rest kept in
+        order, in place."""
+        rows_i = self.neighbors0[aff]
+        dead = (rows_i >= 0) & dmask[rows_i.clamp(min=0).long()]
+        d, i = sorted_topk_unique(torch.where(dead, _INF, self.dists0[aff]),
+                                  torch.where(dead, -1, rows_i), self.m0)
+        self.neighbors0[aff] = i
+        self.dists0[aff] = torch.where(i >= 0, d, _INF)
 
     def _repair_rows(self, aff: torch.Tensor, pool: torch.Tensor,
                      pv: torch.Tensor, dmask: torch.Tensor, kk: int) -> None:
@@ -1250,7 +1389,7 @@ class HnswIndex:
     def _rescan_entry_point(self) -> None:
         """The live node of the highest level, first by slot
         (src/hnsw_algo.c:790-802); none when the index is empty."""
-        live = np.nonzero(self.store.valid.cpu().numpy())[0]
+        live = np.nonzero(host_read("hnsw_entry_rescan", self.store.valid))[0]
         if len(live) == 0:
             self.entry_point = -1
             self.max_level = -1

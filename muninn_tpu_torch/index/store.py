@@ -7,7 +7,10 @@ written rounded to nearest even and read back with ``.float()``; or
 the index's device, with the int64 external-id <-> int32 slot map kept on the
 host. Appends and deletes update the device tensors in place (slice and
 index assignment); capacity grows by doubling, rounded to
-``pad_multiple``.
+``pad_multiple``. With ``reuse_slots`` a store takes freed slots again,
+lowest first, before it appends at its high watermark, so that steady churn
+keeps its capacity; without (the default, and the JAX package's only way)
+slots are never reused.
 
 The device defaults to the card, ``"cuda"``; the CPU is used only when a
 caller passes ``device="cpu"``. Without a card the default raises rather
@@ -45,7 +48,7 @@ class VectorStore:
 
     def __init__(self, dim: int, capacity: int = 1024, pad_multiple: int = 1024,
                  *, device: str | torch.device = "cuda",
-                 dtype: torch.dtype = torch.float32):
+                 dtype: torch.dtype = torch.float32, reuse_slots: bool = False):
         if dtype not in (torch.float32, torch.bfloat16, torch.int8):
             raise ValueError(
                 f"store dtype must be float32, bfloat16 or int8, got {dtype}")
@@ -66,6 +69,9 @@ class VectorStore:
         self._id_of = np.full((capacity,), -1, np.int64)
         self._count = 0          # live rows
         self._high = 0           # first never-used slot
+        self.reuse_slots = bool(reuse_slots)
+        # freed slots below _high, ascending, taken first by register
+        self._free = np.zeros(0, np.int32)
 
     @property
     def capacity(self) -> int:
@@ -109,19 +115,29 @@ class VectorStore:
         return id_list
 
     def register(self, ids: np.ndarray, reserve_extra: int = 0) -> np.ndarray:
-        """Host-only bookkeeping of an append: assigns contiguous slots and
-        records the id mapping without device writes (the caller writes the
-        rows and validity itself). Reserves room for ``n + reserve_extra``
-        rows."""
+        """Host-only bookkeeping of an append: assigns slots (freed ones
+        first, lowest first, with ``reuse_slots``; then contiguous slots from
+        the high watermark) and records the id mapping without device writes
+        (the caller writes the rows and validity itself). Reserves room for
+        the appended rows and ``reserve_extra`` more. Returns the slots,
+        ascending."""
         ids = np.asarray(ids, np.int64)
         id_list = self._check_new(ids)
         n = len(id_list)
-        self.reserve(n + reserve_extra)
-        slots = np.arange(self._high, self._high + n, dtype=np.int32)
-        self._slot_of.update(zip(id_list, slots.tolist()))
-        self._id_of[slots] = ids
-        self._high += n
-        self._count += n
+        with span("store.register", rows=n) as sp:
+            cap = self.capacity
+            reused = self._free[:n] if self.reuse_slots else self._free[:0]
+            fresh = n - len(reused)
+            self.reserve(fresh + reserve_extra)
+            slots = np.concatenate(
+                [reused, np.arange(self._high, self._high + fresh, dtype=np.int32)])
+            self._free = self._free[len(reused):]
+            self._slot_of.update(zip(id_list, slots.tolist()))
+            self._id_of[slots] = ids
+            self._high += fresh
+            self._count += n
+            sp.set(reused=len(reused), grew=int(self.capacity != cap),
+                   high_watermark=self._high, live=self._count)
         return slots
 
     def add(self, ids: np.ndarray, vectors) -> np.ndarray:
@@ -132,21 +148,26 @@ class VectorStore:
         vecs = vecs.reshape(len(ids), self.dim)
         slots = self.register(ids)
         if len(slots):
-            # slots are contiguous: one in-place slice write per tensor
             lo, hi = int(slots[0]), int(slots[-1]) + 1
-            self.vectors[lo:hi] = vecs.to(self.device)
-            self.valid[lo:hi] = True
+            # contiguous slots: one in-place slice write per tensor
+            at = (slice(lo, hi) if hi - lo == len(slots) else
+                  torch.as_tensor(slots, dtype=torch.long, device=self.device))
+            self.vectors[at] = vecs.to(self.device)
+            self.valid[at] = True
         return slots
 
     def unregister(self, ids: np.ndarray) -> np.ndarray:
         """Host-only bookkeeping of a soft delete: drops the id mapping and
-        returns the freed slots without touching the validity mask."""
+        returns the freed slots without touching the validity mask; with
+        ``reuse_slots`` they join the free list."""
         ids = np.asarray(ids, np.int64)
         slots = np.array([self._slot_of[int(i)] for i in ids], np.int32)
         for i in ids.tolist():
             del self._slot_of[i]
         self._id_of[slots] = -1
         self._count -= len(slots)
+        if self.reuse_slots:
+            self._free = np.union1d(self._free, slots).astype(np.int32)
         return slots
 
     def remove(self, ids: np.ndarray) -> np.ndarray:
@@ -198,6 +219,13 @@ class VectorStore:
         self._slot_of = dict(zip(id_of[live].tolist(), live.tolist()))
         self._count = len(live)
         self._high = hw
+        self.reset_free()
+
+    def reset_free(self) -> None:
+        """Rebuild the free list from the id map: every slot below the high
+        watermark that holds no id (none without ``reuse_slots``)."""
+        self._free = (np.flatnonzero(self._id_of[: self._high] < 0).astype(np.int32)
+                      if self.reuse_slots else np.zeros(0, np.int32))
 
     def slot(self, id_: int) -> int | None:
         return self._slot_of.get(int(id_))

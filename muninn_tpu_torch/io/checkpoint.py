@@ -82,10 +82,13 @@ def save_hnsw(index, path: str | os.PathLike) -> None:
     _save(path, "hnsw", hnsw_index_to_numpy(index))
 
 
-def load_hnsw(path: str | os.PathLike, device: str | torch.device = "cuda"):
+def load_hnsw(path: str | os.PathLike, device: str | torch.device = "cuda",
+              reuse_slots: bool = True):
     """An ``HnswIndex`` on ``device`` from a checkpoint of either package;
-    its searches return what the saved index's returned."""
-    return hnsw_index_from_numpy(_load(path, "hnsw"), device=device)
+    its searches return what the saved index's returned. ``reuse_slots``
+    False keeps the JAX package's slot numbers through later writes."""
+    return hnsw_index_from_numpy(_load(path, "hnsw"), device=device,
+                                 reuse_slots=reuse_slots)
 
 
 # ───────────────────────── Flat ─────────────────────────

@@ -36,8 +36,18 @@ Counters, which count whether or not a profiler records:
   (``ops._build.LAUNCHES`` is this dict);
 - ``HOST_SYNCS[site]``: host reads through ``host_read``: the graph
   fixpoints' "go on" flags by fixpoint (``graph.traversal.HOST_SYNCS`` is
-  this dict), ``download`` (each result copied back by a ``search``) and
-  ``hnsw_beam`` (the fused HNSW beam's flag, one a step).
+  this dict), ``download`` (each result copied back by a ``search``),
+  ``hnsw_beam`` (the fused HNSW beam's flag, one a step), and an HNSW
+  delete's reads: ``hnsw_delete_refs`` (which rows point at a deleted
+  slot), ``hnsw_delete_pool`` (the deleted rows' neighbours) and
+  ``hnsw_entry_rescan`` (the validity mask, when the entry point died).
+
+Spans of the write path: ``index.insert`` and ``index.delete`` (one request
+a call, with ``rows`` and, when they end, the store's ``high_watermark``,
+``live`` and ``capacity``), and inside them ``hnsw.wave``, ``store.register``
+(``rows``, ``reused`` slots, ``grew`` 0/1, ``high_watermark``, ``live``),
+``hnsw.prune`` and ``hnsw.repair`` (the rows they rewrite); in a search,
+``hnsw.repack`` (the packed neighbour rows re-gathered, ``whole`` 0/1).
 """
 
 from __future__ import annotations
@@ -66,11 +76,13 @@ LAUNCHES: dict[str, int] = {"flat_topk": 0, "flat_topk_int8": 0,
                             "gather_rows": 0}
 
 #: host reads by site: the graph fixpoints' flags by fixpoint, a search's
-#: result downloads, the HNSW beam's flag
+#: result downloads, the HNSW beam's flag, an HNSW delete's reads
 HOST_SYNCS: dict[str, int] = {"bfs": 0, "seeded_bfs": 0,
                               "multi_source": 0, "components": 0,
                               "sssp": 0, "brandes": 0, "leiden": 0,
-                              "download": 0, "hnsw_beam": 0}
+                              "download": 0, "hnsw_beam": 0,
+                              "hnsw_delete_refs": 0, "hnsw_delete_pool": 0,
+                              "hnsw_entry_rescan": 0}
 
 
 def reset_launches() -> None:

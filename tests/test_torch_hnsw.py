@@ -526,7 +526,7 @@ def test_hnsw_edge_cases_and_errors():
     small_j = JaxHnswIndex(16, "l2", m=4, wave_size=64)
     for idx in (small, small_j):
         idx.insert(np.arange(100), x[:100])  # < 4 waves: two waves
-    assert len(small) == 100 and not small._packed_auto
+    assert len(small) == 100 and small._maybe_packed() is None
     tid, tdist = small.search(q, k=5)
     jid, jdist = small_j.search(q, k=5)
     np.testing.assert_array_equal(tid, np.asarray(jid))

@@ -42,11 +42,13 @@ def _rows(seed, n):
 
 def _pair(metric, m=6, mn_ru=True, mode="exact", seed=3, capacity=256):
     """A JAX and a port index with the same knobs, both at exact build
-    precision and f32 search."""
+    precision and f32 search; the port never reuses a slot, as JAX does
+    not, so that their tables match slot for slot."""
     j = JaxHnswIndex(D, metric, m=m, ef_construction=40, wave_size=WAVE,
                      capacity=capacity, seed=seed, mn_ru=mn_ru)
     t = HnswIndex(D, metric, m=m, ef_construction=40, wave_size=WAVE,
-                  capacity=capacity, seed=seed, mn_ru=mn_ru, device="cpu")
+                  capacity=capacity, seed=seed, mn_ru=mn_ru, device="cpu",
+                  reuse_slots=False)
     for idx in (j, t):
         idx.build_precision = "highest"
         idx.insert_mode = mode

@@ -263,9 +263,10 @@ def test_bulk_build_into_an_emptied_index_wires_no_tombstone(rng):
     the dead rows below the batch, so no live edge points at a tombstone.
     (The JAX package's sweep, ``hnsw.py:1170``, passes no mask and wires
     dead rows in here: a fault of the reference the port does not copy,
-    ROADMAP queue 3.)"""
+    ROADMAP queue 3.) Slots are not reused here, so that the dead rows
+    stay below the batch."""
     x = rng.standard_normal((300, 8)).astype(np.float32)
-    idx = HnswIndex(8, "l2", m=4, wave_size=32, device="cpu")
+    idx = HnswIndex(8, "l2", m=4, wave_size=32, device="cpu", reuse_slots=False)
     idx.insert(np.arange(300), x)
     idx.delete(np.arange(300))
     idx.insert(np.arange(300), x + 0.01)
