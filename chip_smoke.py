@@ -12,7 +12,8 @@ Phases, each of which exits non-zero on failure:
 1. the card (``nvidia-smi`` name and power limit) and the torch/CUDA versions;
 2. build the ``flat_topk`` (f32, ``highest``), ``flat_topk_mma`` (the
    tensor-core kernel of the bf16 and int8 modes), ``beam_dots`` (with its
-   top-m mode), ``beam_loop``, ``beam_step`` and ``gather_rows`` kernels from
+   top-m mode), ``beam_loop``, ``beam_step``, ``gather_rows`` and
+   ``delete_repair`` kernels from
    ``muninn_tpu_torch/csrc``, one ``nvcc`` for each, started together (and
    beside them, for phase 17, the host graph library with ``g++``); print
    ``ptxas``'s registers and spills, and the tensor-core kernel's shared
@@ -135,8 +136,9 @@ Phases, each of which exits non-zero on failure:
    waves of 2,048 (one warm, then 15 timed: ``incr_insert_vec_per_s``),
    then 1,024 ids deleted at a time (one warm, then 7 timed:
    ``delete_repair_per_s``), slots 0..8,191 in all; every wave's
-   ``flat_topk`` launch the tensor-core kernel's, every repair launch the
-   f32 kernel's; no live edge (level 0 or, after the queued promotions are
+   ``flat_topk`` launch the tensor-core kernel's, the warm delete's repair
+   taken eager (its f32 ``flat_topk`` calls kept for the checks below),
+   each timed delete one ``delete_repair`` launch and no other; no live edge (level 0 or, after the queued promotions are
    wired, above) points at a tombstone; the packed table kept through the
    churn, its marked rows re-gathered, equal to a whole gather; the first
    2,048 queries searched at k=10, ef=32 by the row path (no table within a
@@ -259,6 +261,18 @@ Phases, each of which exits non-zero on failure:
    search of the 2,048 sampled rows (ef=20, E=8, R0=32, d=64, bf16), as in
    phase 10. The phase's JSON line (``{"node2vec":
    ...}``) comes before the kernels' record; the phase adds no kernel.
+
+20. ``delete_repair`` at the churn cell's shape: ``HnswIndex(384, "l2",
+   m=16)`` bulk-built over phase 4's 100k rows, 2,048 seeded ids deleted
+   in one wave (some 45-60k affected rows against a pool of 40-50k, kk
+   33): the kernel's graph against the eager repair's (``flat_topk`` at
+   ``highest`` in chunks of 4,096 rows, forced), bit for bit; the kernel
+   timed (the graph restored between calls) beside its FP32 bound, the
+   eager repair's device and wall ms, and the library yardstick, one f32
+   ``torch.mm`` (TF32 off) of the affected rows against the pool and one
+   ``torch.topk`` (in chunks of 8,192 rows, without the merge). Its JSON
+   line (``{"delete_repair": ...}``) comes before the kernels' record,
+   which carries it.
 
 Each kernel's record carries its bound: the larger of the operations over
 the card's peak rate for their type and the bytes (each input read once,
@@ -2088,6 +2102,105 @@ def node2vec_phase() -> dict:
     return out
 
 
+def delete_repair_phase(x: np.ndarray, seed: int = 20) -> dict:
+    """Phase 20 (see the module docstring): ``delete_repair`` at the churn
+    cell's shape on ``x`` (phase 4's rows). Returns what the phase's JSON
+    line prints."""
+    from muninn_tpu_torch import HnswIndex
+    from muninn_tpu_torch.index import hnsw as hnsw_mod
+    from muninn_tpu_torch.ops import _build
+    from muninn_tpu_torch.ops.delete_repair import delete_repair_cuda
+    from muninn_tpu_torch.ops.distance import exact_f32_dots
+
+    n, d = x.shape
+    index = HnswIndex(d, "l2", m=16, ef_construction=200, capacity=137_216, seed=seed,
+                      device="cuda")
+    index.insert(np.arange(n), x)
+    kk = index.m0 + 1
+    ids = np.random.default_rng(seed).choice(n, 2048, replace=False)
+    slots = torch.as_tensor(index.store.slots_of(ids), device="cuda")
+    index.store.valid[slots] = False
+    dead = torch.zeros(index.neighbors0.shape[0], dtype=torch.bool, device="cuda")
+    dead[slots] = True
+    _, aff, pool, counts = hnsw_mod._delete_lists(index.neighbors0, slots, dead,
+                                                  index.m0)
+    n_aff, n_pool = counts.tolist()
+    vec = index.store.vectors[: index.store.high_watermark]
+    nb0, nd0 = index.neighbors0.clone(), index.dists0.clone()
+
+    def restore():
+        index.neighbors0.copy_(nb0)
+        index.dists0.copy_(nd0)
+
+    def timed(fn, reps=3) -> tuple[list[float], list[float]]:
+        """Device and wall ms of ``fn`` after ``restore``, ``reps`` times."""
+        dev_ms, wall_ms = [], []
+        for _ in range(reps):
+            restore()
+            torch.cuda.synchronize()
+            start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+            t0 = time.perf_counter()
+            start.record()
+            fn()
+            end.record()
+            end.synchronize()
+            wall_ms.append((time.perf_counter() - t0) * 1e3)
+            dev_ms.append(start.elapsed_time(end))
+        return dev_ms, wall_ms
+
+    def kernel():
+        delete_repair_cuda(vec, aff, pool, counts, dead, index.neighbors0,
+                           index.dists0, kk, "l2", keep_if_empty=False)
+
+    real_engine = hnsw_mod.repair_engine
+
+    def eager():
+        hnsw_mod.repair_engine = lambda *a: "eager"
+        try:
+            index._repair(aff, pool, counts, dead)
+        finally:
+            hnsw_mod.repair_engine = real_engine
+
+    _build.reset_launches()
+    kernel()
+    check(_build.LAUNCHES["delete_repair"] == 1, f"the repair launched {_build.LAUNCHES}")
+    k_nb, k_nd = index.neighbors0.clone(), index.dists0.clone()
+    restore()
+    eager()
+    torch.cuda.synchronize()
+    equal = bool(torch.equal(k_nb, index.neighbors0) and torch.equal(k_nd, index.dists0))
+    check(equal, "delete_repair's graph differs from the eager repair's")
+    changed = int((k_nb != nb0).any(dim=1).sum())
+    ms, wall = timed(kernel)
+    plain_ms, plain_wall = timed(eager)
+    restore()
+    q = vec[aff[:n_aff]]
+    pv = vec[pool[:n_pool]]
+
+    def library():
+        for lo in range(0, n_aff, 8192):
+            torch.topk(exact_f32_dots(q[lo : lo + 8192], pv), kk, dim=1, largest=False)
+
+    library_ms = device_ms(library, reps=3)
+    bound_ms, bound_by = bound(2.0 * n_aff * n_pool * d, "fp32",
+                               4.0 * (n_aff + n_pool) * d + 8.0 * n_aff * index.m0)
+    out = {"shape": {"affected": n_aff, "pool": n_pool, "d": d, "kk": kk},
+           "rows_changed": changed, "bit_equal": equal,
+           "ms": statistics.median(ms), "wall_ms": statistics.median(wall),
+           "plain_ms": statistics.median(plain_ms),
+           "plain_wall_ms": statistics.median(plain_wall),
+           "library_ms": library_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_share": bound_ms / statistics.median(ms),
+           "launches_per_wave": 1}
+    print(f"{card_line()}: delete_repair, {n_aff} affected rows x a pool of {n_pool},"
+          f" d={d}, kk={kk}: kernel {out['ms']:.3f} ms (wall {out['wall_ms']:.3f}),"
+          f" eager {out['plain_ms']:.3f} ms (wall {out['plain_wall_ms']:.3f}), library"
+          f" {library_ms:.3f} ms; bound {bound_ms:.3f} ms ({bound_by}); bit for bit"
+          f" the eager graph ({changed} rows changed)", flush=True)
+    del index, nb0, nd0, k_nb, k_nd, q, pv
+    return out
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs on the card",
@@ -2100,6 +2213,7 @@ def main() -> int:
     from muninn_tpu_torch.ops import _build, beam
     from muninn_tpu_torch.ops import beam_loop as beam_loop_mod
     from muninn_tpu_torch.ops import beam_step as beam_step_mod
+    from muninn_tpu_torch.ops import delete_repair as delete_repair_mod
     from muninn_tpu_torch.ops import flat_topk as flat_topk_mod
     from muninn_tpu_torch.ops import gather as gather_mod
     from muninn_tpu_torch.ops.beam import (
@@ -2155,9 +2269,10 @@ def main() -> int:
     native_build.start()
     t0 = time.perf_counter()
     sources = ["flat_topk", "flat_topk_mma", "beam_dots", "beam_loop",
-               "beam_step", "gather_rows"]
+               "beam_step", "gather_rows", "delete_repair"]
     _build.load_all(sources)  # one nvcc each, in parallel
-    for mod in (flat_topk_mod, beam, beam_loop_mod, beam_step_mod, gather_mod):
+    for mod in (flat_topk_mod, beam, beam_loop_mod, beam_step_mod, gather_mod,
+                delete_repair_mod):
         mod._library()
     flat_topk_mod._mma_library()
     print(f"build: {', '.join(sources)} in {time.perf_counter() - t0:.1f} s")
@@ -2199,6 +2314,18 @@ def main() -> int:
     n_ffma, n_mma = sass.count("FFMA"), sass.count("HMMA") + sass.count("HGMMA")
     print(f"  flat_topk SASS: {n_ffma} FFMA, {n_mma} HMMA/HGMMA")
     check(n_ffma > 0 and n_mma == 0, "the f32 kernel's SASS is not FFMA alone")
+    # the delete's repair likewise: exact f32, and no spill
+    rep_log = _build.BUILD_LOGS.get("delete_repair")
+    if rep_log is not None:
+        spills = [int(v) for v in re.findall(r"(\d+) bytes spill", rep_log)]
+        check(bool(spills) and not any(spills), "ptxas spilled in delete_repair")
+    rep_so = _build.build(["delete_repair"])["delete_repair"]
+    sass = subprocess.run([str(cuobjdump), "-sass", str(rep_so)], capture_output=True,
+                          text=True, check=True, timeout=300).stdout
+    n_ffma, n_mma = sass.count("FFMA"), sass.count("HMMA") + sass.count("HGMMA")
+    print(f"  delete_repair SASS: {n_ffma} FFMA, {n_mma} HMMA/HGMMA; plan at kk=33"
+          f" {delete_repair_mod.repair_plan(33)}")
+    check(n_ffma > 0 and n_mma == 0, "the repair kernel's SASS is not FFMA alone")
     sys.stdout.flush()
 
     # 3. the f32 kernel vs plain on the card
@@ -3057,11 +3184,17 @@ def main() -> int:
         repair_calls.append((args, kwargs))
         return real_flat_topk(*args, **kwargs)
 
-    hnsw_mod.flat_topk = recording  # the warm delete's repair calls, kept
+    # the warm delete's repair calls, kept: its repair taken eager
+    real_engine = hnsw_mod.repair_engine
+    hnsw_mod.flat_topk = recording
+    hnsw_mod.repair_engine = lambda *a: "eager"
+    _build.reset_launches()
     try:
         hnsw.delete(dead15[:kill15])
     finally:
         hnsw_mod.flat_topk = real_flat_topk
+        hnsw_mod.repair_engine = real_engine
+    warm_del_launches = dict(_build.LAUNCHES)
     torch.cuda.synchronize()
     _build.reset_launches()
     t0 = time.perf_counter()
@@ -3070,8 +3203,8 @@ def main() -> int:
     torch.cuda.synchronize()
     delete_rate = 7 * kill15 / (time.perf_counter() - t0)
     del_launches = dict(_build.LAUNCHES)
-    check(del_launches["flat_topk"] > 0 and del_launches["flat_topk_mma"] == 0
-          and sum(del_launches.values()) == del_launches["flat_topk"],
+    check(del_launches["delete_repair"] == 7
+          and sum(del_launches.values()) == del_launches["delete_repair"],
           f"7 delete waves launched {del_launches}")
     check(len(hnsw) == n + churn - 8 * kill15, f"churned count {len(hnsw)}")
     hnsw._flush_hi_wiring()
@@ -3258,6 +3391,10 @@ def main() -> int:
     n2v19 = node2vec_phase()
     print(json.dumps({"node2vec": n2v19}))
 
+    # 20. the delete's repair at the churn cell's shape
+    rep20 = delete_repair_phase(x)
+    print(json.dumps({"delete_repair": rep20}))
+
     print(json.dumps({"kernels": [{
         "name": "flat_topk",
         "route": "cuda",
@@ -3276,7 +3413,7 @@ def main() -> int:
         "bound_ms_1m_768": bound5,
         "library_ms_1m_768": library_ms5,
         "gemm_ms_1m_768": gemm_ms5,
-        "launches_repair_7_deletes": del_launches["flat_topk"],
+        "launches_repair_eager_delete": warm_del_launches["flat_topk"],
         "ms_repair": repair_ms,
         "plain_ms_repair": repair_plain_ms,
         "bound_ms_repair": repair_bound,
@@ -3429,6 +3566,17 @@ def main() -> int:
         "bound_ms": gather_bound_ms,
         "bound_by": gather_bound_by,
         "library_ms": gather_library_ms,
+    }, {
+        "name": "delete_repair",
+        "route": "cuda",
+        "source": "muninn_tpu_torch/csrc/delete_repair.cu",
+        "replaces": "the XLA glue of muninn_tpu/index/hnsw.py:1860-1896 around"
+                    " muninn_tpu/ops/pallas_flat.py:49 (highest)",
+        "launches": rep20["launches_per_wave"],
+        "launches_churn_7_deletes": del_launches["delete_repair"],
+        "max_abs_err": 0.0,
+        **{key: rep20[key] for key in ("shape", "ms", "plain_ms", "bound_ms",
+                                       "bound_by", "library_ms", "bound_share")},
     }]}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu",

@@ -24,8 +24,9 @@ repair, and every search route.
   promoted nodes are queued and wired exactly by ``_flush_hi_wiring``.
 - Delete: soft delete, then every live row that pointed at a deleted slot
   drops those edges and refills from the deleted nodes' former
-  neighbourhoods (``flat_topk`` at ``highest``); the entry point is
-  rescanned when it died.
+  neighbourhoods (``flat_topk`` at ``highest``; on a CUDA f32 store one
+  ``ops.delete_repair`` kernel launch a wave, over lists that stay on the
+  card); the entry point is rescanned when it died.
 - Slots: with ``reuse_slots`` (the default) a wave takes the slots and
   upper-level rows that deletes freed, lowest first, before new ones, so
   that steady churn keeps the capacity; the JAX package never reuses a
@@ -75,6 +76,7 @@ from muninn_tpu_torch.ops.beam_step import (
     go_on,
     step_engine,
 )
+from muninn_tpu_torch.ops.delete_repair import delete_repair_cuda, repair_engine
 from muninn_tpu_torch.ops.distance import (
     Metric,
     gathered_distances,
@@ -96,7 +98,7 @@ from muninn_tpu_torch.tracing import host_read, request, span
 HNSW_MAX_LEVELS = 32  # the reference's cap, src/hnsw_algo.h:14
 _SWEEP_ROWS = 8192    # rows per chunk of the bulk kNN sweep and the prune
 _PRUNE_ROWS = 4096    # rows per chunk of an MN-RU prune: [rows, 4M * 2M] reads
-_REPAIR_ROWS = 4096   # affected rows per repair call of a delete
+_REPAIR_ROWS = 4096   # affected rows per call of a delete's eager repair
 _INF = float("inf")
 SEARCH_QUANTS = ("bf16", "int8")  # the beam's guidance rows
 INSERT_MODES = ("exact", "beam")  # a wave's candidate source
@@ -495,6 +497,31 @@ def _hi_reverse_wire(hi_neighbors, hi_index, vectors, o_arr, s_arr,
     dd = torch.where(cand >= 0, dd, _INF)
     _, new_rows = sorted_topk_unique(dd, cand, m)
     hi_neighbors[rows_h, lvl] = new_rows
+
+
+# ───────────────────────── delete ─────────────────────────
+
+
+def _delete_lists(nb: torch.Tensor, slots: torch.Tensor, dead: torch.Tensor,
+                  m0: int):
+    """A delete wave's lists, made on ``nb``'s device with no host read
+    (the sets of ``hnsw.py:1442-1452``): the ``[cap]`` mask of the live rows
+    that point at a deleted slot; those rows, ascending, -1-padded to ``cap``;
+    the repair pool, the deleted rows' neighbours that are live, ascending,
+    -1-padded to ``min(cap, len(slots) * m0)``; and their two counts (int64
+    ``[2]``). ``slots``: the wave's deleted slots (int64), ``dead``: them as
+    a ``[cap]`` mask."""
+    cap = nb.shape[0]
+    refs = ((nb >= 0) & dead[nb.clamp(min=0).long()]).any(dim=1) & ~dead
+    held = nb[slots].reshape(-1).long()
+    in_pool = torch.zeros(cap + 1, dtype=torch.bool, device=nb.device)
+    # -1 lands past the table
+    in_pool.index_fill_(0, torch.where(held >= 0, held, cap), True)
+    in_pool = in_pool[:cap] & ~dead
+    aff = torch.nonzero_static(refs, size=cap, fill_value=-1)[:, 0]
+    pool = torch.nonzero_static(in_pool, size=min(cap, len(slots) * m0),
+                                fill_value=-1)[:, 0]
+    return refs, aff, pool, torch.stack((refs.sum(), in_pool.sum()))
 
 
 # ───────────────────────── index class ─────────────────────────
@@ -1300,6 +1327,30 @@ class HnswIndex:
 
     def _delete_wave(self, ids: np.ndarray) -> None:
         slots = self.store.unregister(ids)
+        # the device's part first, with no host read: mark, list the rows
+        # pointing at a deleted slot and the former neighbourhoods, repair,
+        # clear the deleted rows and scrub the upper levels; the host's
+        # bookkeeping below runs while the card works (``index_fill_``: a
+        # CUDA ``t[idx] = scalar`` copies the scalar from the host and waits
+        # for the card)
+        dev = self.device
+        slots_t = torch.as_tensor(slots, dtype=torch.long, device=dev)
+        self.store.valid.index_fill_(0, slots_t, False)
+        dmask = torch.zeros(self.neighbors0.shape[0], dtype=torch.bool, device=dev)
+        dmask.index_fill_(0, slots_t, True)
+        refs, aff, pool, counts = _delete_lists(self.neighbors0, slots_t, dmask,
+                                                self.m0)
+        self._repair(aff, pool, counts, dmask)
+        self.neighbors0.index_fill_(0, slots_t, -1)
+        self.dists0.index_fill_(0, slots_t, _INF)
+        hn = self.hi_neighbors
+        self.hi_neighbors = torch.where(
+            (hn >= 0) & dmask[hn.clamp(min=0).long()], -1, hn)
+        self.hi_index.index_fill_(0, slots_t, -1)
+        self._mark_dirty(refs)
+        self._mark_dirty(dmask)
+        self._after_write()
+
         self.levels[slots] = -1
         hi_rows = self._hi_index_np[slots]
         hi_rows = hi_rows[hi_rows >= 0]
@@ -1308,53 +1359,51 @@ class HnswIndex:
             self._hi_pending = [(sl[~np.isin(sl, slots)], lv[~np.isin(sl, slots)])
                                 for sl, lv in self._hi_pending]
         self._pool_dirty = True
-
-        # mark; the former neighbourhoods and the rows pointing at a
-        # deleted slot come back to the host
-        dev = self.device
-        slots_t = torch.as_tensor(slots, dtype=torch.long, device=dev)
-        self.store.valid[slots_t] = False
-        dmask = torch.zeros(self.neighbors0.shape[0], dtype=torch.bool, device=dev)
-        dmask[slots_t] = True
-        nb = self.neighbors0
-        refs_dead = ((nb >= 0) & dmask[nb.clamp(min=0).long()]).any(dim=1)
-        aff = np.nonzero(host_read("hnsw_delete_refs", refs_dead))[0]
-        aff = aff[~np.isin(aff, slots)]
-        pool = np.unique(host_read("hnsw_delete_pool", nb[slots_t]))
-        pool = pool[(pool >= 0) & ~np.isin(pool, slots)]
-        aff_t = torch.as_tensor(aff, dtype=torch.long, device=dev)
-        with span("hnsw.repair", rows=len(aff)):
-            if len(aff) and len(pool):
-                # JAX pads the pool to a power of two of at least 64, which
-                # sets k
-                kk = min(self.m0 + 1, len(_pow2_pad(pool)))
-                pool_t = torch.as_tensor(pool, dtype=torch.long, device=dev)
-                pv = self.store.vectors[pool_t]
-                for s in range(0, len(aff), _REPAIR_ROWS):
-                    self._repair_rows(aff_t[s : s + _REPAIR_ROWS], pool_t, pv,
-                                      dmask, kk)
-            elif len(aff) and self.store.reuse_slots:
-                # nothing to refill from; a slot that is taken again must
-                # not keep edges from before
-                self._drop_dead_edges(aff_t, dmask)
-
-        # clear the deleted rows, scrub the upper levels
-        self.neighbors0[slots_t] = -1
-        self.dists0[slots_t] = _INF
-        hn = self.hi_neighbors
-        self.hi_neighbors = torch.where(
-            (hn >= 0) & dmask[hn.clamp(min=0).long()], -1, hn)
-        self.hi_index[slots_t] = -1
         if self.store.reuse_slots and len(hi_rows):
             # rows queued but never wired may lie past the table
             held = hi_rows[hi_rows < self.hi_neighbors.shape[0]]
-            self.hi_neighbors[torch.as_tensor(held, dtype=torch.long, device=dev)] = -1
+            self.hi_neighbors.index_fill_(
+                0, torch.as_tensor(held, dtype=torch.long, device=dev), -1)
             self._hi_free = np.union1d(self._hi_free, hi_rows).astype(np.int32)
-        self._mark_dirty(aff_t)
-        self._mark_dirty(slots_t)
-        self._after_write()
         if self.entry_point in set(slots.tolist()):
             self._rescan_entry_point()
+
+    def _repair(self, aff: torch.Tensor, pool: torch.Tensor,
+                counts: torch.Tensor, dmask: torch.Tensor) -> None:
+        """A delete wave's repair over ``_delete_lists``' affected rows and
+        pool: every affected row drops its edges to deleted slots and
+        refills from its ``m0 + 1`` closest pool rows (``_repair_rows``);
+        with an empty pool it only drops them where slots are taken again.
+        Where ``repair_engine`` admits the store, one ``delete_repair``
+        launch over the lists as they lie on the device, with no host read;
+        else the eager chunks, after one counted read of the two counts.
+        The ``hnsw.repair`` span names the engine."""
+        st = self.store
+        engine = repair_engine(st.vectors, self.m0 + 1)
+        with span("hnsw.repair", engine=engine) as sp:
+            if engine == "kernel":
+                # k is m0 + 1 at any pool size: JAX pads the pool to at
+                # least 64 rows, and the gate admits m0 + 1 <= 64
+                delete_repair_cuda(st.vectors[: st.high_watermark], aff, pool,
+                                   counts, dmask, self.neighbors0, self.dists0,
+                                   self.m0 + 1, self.metric,
+                                   keep_if_empty=not st.reuse_slots)
+                return
+            n_aff, n_pool = (int(n) for n in host_read("hnsw_delete_counts", counts))
+            sp.set(rows=n_aff)
+            aff, pool = aff[:n_aff], pool[:n_pool]
+            if n_aff and n_pool:
+                # JAX pads the pool to a power of two of at least 64, which
+                # sets k
+                kk = min(self.m0 + 1, 1 << max(n_pool - 1, 63).bit_length())
+                pv = st.vectors[pool]
+                for s in range(0, n_aff, _REPAIR_ROWS):
+                    self._repair_rows(aff[s : s + _REPAIR_ROWS], pool, pv,
+                                      dmask, kk)
+            elif n_aff and st.reuse_slots:
+                # nothing to refill from; a slot that is taken again must
+                # not keep edges from before
+                self._drop_dead_edges(aff, dmask)
 
     def _drop_dead_edges(self, aff: torch.Tensor, dmask: torch.Tensor) -> None:
         """Rows ``aff`` drop their edges to deleted slots, the rest kept in

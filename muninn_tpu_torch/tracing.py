@@ -38,16 +38,17 @@ Counters, which count whether or not a profiler records:
   fixpoints' "go on" flags by fixpoint (``graph.traversal.HOST_SYNCS`` is
   this dict), ``download`` (each result copied back by a ``search``),
   ``hnsw_beam`` (the fused HNSW beam's flag, one a step), and an HNSW
-  delete's reads: ``hnsw_delete_refs`` (which rows point at a deleted
-  slot), ``hnsw_delete_pool`` (the deleted rows' neighbours) and
+  delete's reads: ``hnsw_delete_counts`` (the counts of a wave's affected
+  rows and repair pool, read only where the wave's repair is eager) and
   ``hnsw_entry_rescan`` (the validity mask, when the entry point died).
 
 Spans of the write path: ``index.insert`` and ``index.delete`` (one request
 a call, with ``rows`` and, when they end, the store's ``high_watermark``,
 ``live`` and ``capacity``), and inside them ``hnsw.wave``, ``store.register``
 (``rows``, ``reused`` slots, ``grew`` 0/1, ``high_watermark``, ``live``),
-``hnsw.prune`` and ``hnsw.repair`` (the rows they rewrite); in a search,
-``hnsw.repack`` (the packed neighbour rows re-gathered, ``whole`` 0/1).
+``hnsw.prune`` (the rows it rewrites) and ``hnsw.repair`` (its ``engine``,
+"kernel" or "eager", and on the eager engine the ``rows`` it rewrites); in a
+search, ``hnsw.repack`` (the packed neighbour rows re-gathered, ``whole`` 0/1).
 """
 
 from __future__ import annotations
@@ -66,14 +67,14 @@ MAX_SPANS = 1 << 18
 # one count per kernel and operand family: flat_topk's float modes and its
 # int8 mode, beam_dots on f32/bf16 blocks and on int8 blocks, beam_dots'
 # top-m mode, the whole-beam loop, one step of the fused beam (any block
-# type), the row gather; flat_topk_mma counts the tensor-core kernel's
-# launches (flat_topk's bf16 mode and flat_topk_int8), each of them also
-# counted under its mode's family
+# type), the row gather, a delete wave's repair; flat_topk_mma counts the
+# tensor-core kernel's launches (flat_topk's bf16 mode and flat_topk_int8),
+# each of them also counted under its mode's family
 LAUNCHES: dict[str, int] = {"flat_topk": 0, "flat_topk_int8": 0,
                             "flat_topk_mma": 0,
                             "beam_dots": 0, "beam_dots_int8": 0,
                             "beam_topm": 0, "beam_loop": 0, "beam_step": 0,
-                            "gather_rows": 0}
+                            "gather_rows": 0, "delete_repair": 0}
 
 #: host reads by site: the graph fixpoints' flags by fixpoint, a search's
 #: result downloads, the HNSW beam's flag, an HNSW delete's reads
@@ -81,7 +82,7 @@ HOST_SYNCS: dict[str, int] = {"bfs": 0, "seeded_bfs": 0,
                               "multi_source": 0, "components": 0,
                               "sssp": 0, "brandes": 0, "leiden": 0,
                               "download": 0, "hnsw_beam": 0,
-                              "hnsw_delete_refs": 0, "hnsw_delete_pool": 0,
+                              "hnsw_delete_counts": 0,
                               "hnsw_entry_rescan": 0}
 
 

@@ -246,7 +246,8 @@ def test_write_spans_and_host_reads(churned):
     """Under a profiler: ``index.insert`` and ``index.delete`` are requests
     of their own with the store's state when they end; a wave holds
     ``store.register`` (its reused slots) and ``hnsw.prune``; a delete
-    holds ``hnsw.repair`` and reads through its own ``HOST_SYNCS`` sites,
+    holds ``hnsw.repair`` (on the CPU the eager engine, which reads the
+    wave's two counts once) and reads through its own ``HOST_SYNCS`` sites,
     which its ``host_syncs`` counts."""
     idx, rng = churned
     tracing.reset_host_syncs()
@@ -257,9 +258,9 @@ def test_write_spans_and_host_reads(churned):
     assert [s.name for s in spans if s.parent == root.id] == ["hnsw.repair"]
     assert root.attrs["live"] == 950 and root.attrs["high_watermark"] == 1000
     assert root.attrs["capacity"] == idx.store.capacity
-    sites = {k: tracing.HOST_SYNCS[k] for k in ("hnsw_delete_refs",
-                                                 "hnsw_delete_pool")}
-    assert sites == {"hnsw_delete_refs": 1, "hnsw_delete_pool": 1}
+    (repair,) = [s for s in spans if s.name == "hnsw.repair"]
+    assert repair.attrs["engine"] == "eager"  # the CPU's repair
+    assert tracing.HOST_SYNCS["hnsw_delete_counts"] == 1
     assert root.attrs["host_syncs"] == sum(tracing.HOST_SYNCS.values())
 
     ep = idx.store.ids_of(np.array([idx.entry_point]))

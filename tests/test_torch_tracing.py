@@ -159,6 +159,40 @@ def test_hnsw_whole_beam_span_tree(hnsw):
     assert not any(s.name.startswith("hnsw.beam_step") for s in spans)
 
 
+def _delete_waves(device):
+    """A delete of 150 ids in waves of 64 (three waves) under a profiler:
+    its ``hnsw.repair`` spans and the counters it moved."""
+    idx = HnswIndex(D, "l2", m=8, ef_construction=32, capacity=2048,
+                    wave_size=64, seed=3, device=device)
+    idx.insert(np.arange(1500), _rows(1500, seed=2))
+    _build.reset_launches()
+    tracing.reset_host_syncs()
+    _, spans, _ = _profiled(lambda: idx.delete(np.arange(0, 1500, 10)))
+    return ([s for s in spans if s.name == "hnsw.repair"], dict(_build.LAUNCHES),
+            dict(tracing.HOST_SYNCS))
+
+
+def test_cpu_delete_repair_is_eager():
+    """On the CPU each delete wave's repair is the eager one: its span says
+    so with the rows it rewrote, after one read of the wave's two counts."""
+    repairs, launches, syncs = _delete_waves("cpu")
+    assert [s.attrs["engine"] for s in repairs] == ["eager"] * 3
+    assert all(s.attrs["rows"] > 0 for s in repairs)
+    assert syncs["hnsw_delete_counts"] == 3 and launches["delete_repair"] == 0
+
+
+@pytest.mark.card
+def test_card_delete_repair_is_one_launch_a_wave():
+    """On the card each delete wave's repair is one ``delete_repair`` launch
+    and reads nothing back; no ``flat_topk`` launch is left in it."""
+    if not torch.cuda.is_available():
+        pytest.skip("no CUDA card: this test runs on the H100 machine")
+    repairs, launches, syncs = _delete_waves("cuda")
+    assert [s.attrs["engine"] for s in repairs] == ["kernel"] * 3
+    assert launches["delete_repair"] == 3 and launches["flat_topk"] == 0
+    assert syncs["hnsw_delete_counts"] == 0
+
+
 def test_ivf_api_spans():
     x = _rows(2500, seed=6)
     idx = IvfIndex(D, "cosine", cluster_size=64, nprobe=4, kmeans_iters=2,

@@ -16,7 +16,8 @@ steps by engine (``kernel`` or ``eager``, counted at each call of
 ``beam_step`` launches; and the packed rows re-gathered a request. With
 ``--trace`` the window runs under ``torch.profiler`` (``--trace 1``'s line)
 and ``probe`` also holds ``split``: the device-busy and device-idle ms a
-request inside the program's ``index.delete``, ``index.insert`` and
+request inside the program's ``index.delete`` (and apart: its
+``hnsw.repair`` spans and the rest of the delete), ``index.insert`` and
 ``index.search`` spans, and in the rest of the window.
 """
 
@@ -32,16 +33,20 @@ from pathlib import Path
 T0 = time.perf_counter()
 
 
+_TOP = ("index.delete", "index.insert", "index.search")  # requests of their own
+
+
 def split(run) -> dict:
     """Device-busy and device-idle ms a request inside the window's write
-    and search spans, and outside them."""
+    and search spans, the delete's ``hnsw.repair`` and the rest of the
+    delete apart, and outside them."""
     from portbench.program_writes import window_spans
 
     busy, (lo, hi) = run.trace.busy, run.trace.window
     spans = window_spans(run, "index.search") or []
     base_ns = None
     out = {}
-    for name in ("index.delete", "index.insert", "index.search"):
+    for name in (*_TOP, "hnsw.repair"):
         found = window_spans(run, name) or []
         if found and base_ns is None:
             base_ns = _base_ns(run, spans)
@@ -52,8 +57,11 @@ def split(run) -> dict:
             i += (e - a) - busy.within(a, e)
         out[name] = {"busy_ms": b, "idle_ms": i}
     n = len(run.trace.requests)
-    rest_busy = run.trace.busy_us - sum(v["busy_ms"] for v in out.values())
-    rest_idle = (hi - lo) - run.trace.busy_us - sum(v["idle_ms"] for v in out.values())
+    rest_busy = run.trace.busy_us - sum(out[k]["busy_ms"] for k in _TOP)
+    rest_idle = (hi - lo) - run.trace.busy_us - sum(out[k]["idle_ms"] for k in _TOP)
+    # hnsw.repair lies inside index.delete: the delete's other work apart
+    out["index.delete.other"] = {m: out["index.delete"][m] - out["hnsw.repair"][m]
+                                 for m in ("busy_ms", "idle_ms")}
     out["rest"] = {"busy_ms": rest_busy, "idle_ms": rest_idle}
     return {k: {m: u / n / 1e3 for m, u in v.items()} for k, v in out.items()}
 
