@@ -2080,10 +2080,10 @@ def node2vec_phase() -> dict:
     torch.cuda.empty_cache()
 
     qc = torch.from_numpy(emb[qrows]).cuda()
-    pool = index._routing_pool()
-    sel = _route(qc, pool, index._pool_vecs(pool), index.metric,
+    pool = index.tables.pool()
+    sel = _route(qc, pool, index.tables.pool_vectors(pool), index.metric,
                  index.route_entries)
-    packed = index._maybe_packed()
+    packed = index.tables.pack()
     check(packed is not None and packed.shape[1:] == (index.m0, d64)
           and packed.dtype == torch.bfloat16,
           "the output index's packed table was not built")
@@ -2094,7 +2094,7 @@ def node2vec_phase() -> dict:
           f" max |d| error {out['flat_max_abs_err']:.3g}", flush=True)
     # the beam of the index's search above: ef_search's default, 2 * k
     out["beam_step"] = beam_step_vs_plain(
-        "the Node2Vec output index's search", qc, sel, index._vecs16(), None,
+        "the Node2Vec output index's search", qc, sel, index.tables.vecs16(), None,
         index.neighbors0, packed, None, index.metric, 2 * 10, index.expand)
     del index, g, emb, qc, sel, packed, corpus, valid
     torch.cuda.empty_cache()
@@ -2799,7 +2799,7 @@ def main() -> int:
     hnsw.pack_neighbors()
     torch.cuda.synchronize()
     pack_s = time.perf_counter() - t0
-    check(hnsw._maybe_packed() is not None, "the packed table was not built")
+    check(hnsw.tables.pack() is not None, "the packed table was not built")
     t0 = time.perf_counter()
     hids, hd = hnsw.search(qq, k=k, ef_search=ef)
     torch.cuda.synchronize()
@@ -2822,11 +2822,11 @@ def main() -> int:
     # the first beam step of one chunk: picks = the routed entries
     chunk = 2816
     qc = qg[:chunk]
-    pool = hnsw._routing_pool()
-    _, sel = flat_topk(qc, hnsw._pool_vecs(pool), hnsw.route_entries,
+    pool = hnsw.tables.pool()
+    _, sel = flat_topk(qc, hnsw.tables.pool_vectors(pool), hnsw.route_entries,
                        metric="cosine", precision="default", corpus_valid=pool >= 0)
     picks = torch.where(sel >= 0, pool[sel.clamp(min=0).long()], -1)
-    packed = hnsw._maybe_packed()
+    packed = hnsw.tables.pack()
     kd8, kc8 = gather_block_dots_cuda(qc, picks, packed)
     torch.cuda.synchronize()
     pd8, pc8 = gather_block_dots_plain(qc, picks, packed)
@@ -2857,7 +2857,7 @@ def main() -> int:
 
     # beam_step at the HNSW cell's shape (c100k-384.hnsw: ef 64, E 8, R0 32,
     # d 384, bf16), every step of one chunk's beam from its routed entries
-    step10 = beam_step_vs_plain("the HNSW cell's shape", qc, picks, hnsw._vecs16(),
+    step10 = beam_step_vs_plain("the HNSW cell's shape", qc, picks, hnsw.tables.vecs16(),
                                 None, hnsw.neighbors0, packed, None, "cosine", 64,
                                 hnsw.expand)
     del packed
@@ -2865,7 +2865,7 @@ def main() -> int:
     # 11. int8 beam guidance on the same graph, repacked
     hnsw.search_quant = "int8"
     hnsw.pack_neighbors()
-    packed8 = hnsw._maybe_packed()
+    packed8 = hnsw.tables.pack()
     check(packed8 is not None and packed8.dtype == torch.int8,
           "the int8 packed table was not built")
     _build.reset_launches()
@@ -2884,9 +2884,9 @@ def main() -> int:
           f" ({nq / search8_ms * 1e3:.0f} QPS); recall@{k} {hnsw8_recall};"
           f" launches {hnsw8_launches}", flush=True)
     # beam_step on the int8 blocks and their scales, at this search's ef
-    v8, sc8 = hnsw._vecs8()
+    v8, sc8 = hnsw.tables.vecs8()
     step11 = beam_step_vs_plain("int8 guidance", qc, picks, v8, sc8, hnsw.neighbors0,
-                                packed8, hnsw._packed_scales, "cosine", ef,
+                                packed8, hnsw.tables.scales, "cosine", ef,
                                 hnsw.expand)
     del v8, sc8, packed8
 
@@ -2925,7 +2925,7 @@ def main() -> int:
 
     hnsw.search_quant = "bf16"
     hnsw.pack_neighbors()
-    packed = hnsw._maybe_packed()
+    packed = hnsw.tables.pack()
     topm = 12
     hnsw.beam_topm = topm
     _build.reset_launches()
@@ -3076,11 +3076,11 @@ def main() -> int:
           f" {hnsw_recall}); launches {whole_launches}", flush=True)
     # one chunk of the whole path: its routed entries as the initial beam
     r13 = min(hnsw.route_entries, ef)
-    ent = _route(qc, pool, hnsw._pool_vecs(pool), hnsw.metric, r13)
+    ent = _route(qc, pool, hnsw.tables.pool_vectors(pool), hnsw.metric, r13)
     init_d = torch.full((chunk, ef), torch.inf, device="cuda")
     init_i = torch.full((chunk, ef), -1, dtype=torch.int32, device="cuda")
     init_d[:, :r13] = torch.where(
-        ent >= 0, gathered_distances(qc, hnsw._vecs16()[ent.clamp(min=0).long()].float(),
+        ent >= 0, gathered_distances(qc, hnsw.tables.vecs16()[ent.clamp(min=0).long()].float(),
                                      "cosine"), torch.inf)
     init_i[:, :r13] = ent
     mi13 = -(-ef // hnsw.expand) + 1  # the search's own step budget
@@ -3240,9 +3240,9 @@ def main() -> int:
 
     # the table kept through churn, its marked rows re-gathered, against a
     # whole gather
-    kept15 = hnsw._maybe_packed()
+    kept15 = hnsw.tables.pack()
     check(kept15 is not None and torch.equal(
-        kept15, hnsw._vecs16()[hnsw.neighbors0.clamp(min=0).long()]),
+        kept15, hnsw.tables.vecs16()[hnsw.neighbors0.clamp(min=0).long()]),
           "the packed table kept through churn is not a whole gather")
     del kept15
     churn15 = {}
@@ -3268,12 +3268,12 @@ def main() -> int:
                            device_ms(lambda: hnsw.search_device(qg15, k, ef15), reps=3),
                            launches15)
     hnsw.beam_whole = False
-    pool15 = hnsw._routing_pool()
+    pool15 = hnsw.tables.pool()
     step15 = beam_step_vs_plain(
         "search after churn", qg15,
-        _route(qg15, pool15, hnsw._pool_vecs(pool15), "cosine",
+        _route(qg15, pool15, hnsw.tables.pool_vectors(pool15), "cosine",
                min(hnsw.route_entries, ef15)),
-        hnsw._vecs16(), None, hnsw.neighbors0, hnsw._maybe_packed(), None, "cosine",
+        hnsw.tables.vecs16(), None, hnsw.neighbors0, hnsw.tables.pack(), None, "cosine",
         ef15, hnsw.expand)
     print(f"{card_line()}: churn at 100k x 384, m={m}: incr_insert_vec_per_s"
           f" {incr_rate:.1f} ({n_waves} waves of {wave15}), delete_repair_per_s"
@@ -3338,16 +3338,16 @@ def main() -> int:
     del cw, qw, vw, kdw, pdw, repair_calls, rq, rc
 
     # beam_loop on a chunk of the churned graph: tombstones and part-empty rows
-    pool15 = hnsw._routing_pool()
+    pool15 = hnsw.tables.pool()
     r15 = min(hnsw.route_entries, ef15)
-    ent = _route(qc, pool15, hnsw._pool_vecs(pool15), hnsw.metric, r15)
+    ent = _route(qc, pool15, hnsw.tables.pool_vectors(pool15), hnsw.metric, r15)
     init_d = torch.full((chunk, ef15), torch.inf, device="cuda")
     init_i = torch.full((chunk, ef15), -1, dtype=torch.int32, device="cuda")
     init_d[:, :r15] = torch.where(
-        ent >= 0, gathered_distances(qc, hnsw._vecs16()[ent.clamp(min=0).long()].float(),
+        ent >= 0, gathered_distances(qc, hnsw.tables.vecs16()[ent.clamp(min=0).long()].float(),
                                      "cosine"), torch.inf)
     init_i[:, :r15] = ent
-    args15 = (qc, init_d, init_i, hnsw._maybe_packed(), hnsw.neighbors0, "cosine",
+    args15 = (qc, init_d, init_i, hnsw.tables.pack(), hnsw.neighbors0, "cosine",
               ef15, hnsw.expand, 0, -(-ef15 // hnsw.expand) + 1)
     kd15, ki15 = beam_loop_cuda(*args15)
     torch.cuda.synchronize()

@@ -31,9 +31,10 @@ repair, and every search route.
   upper-level rows that deletes freed, lowest first, before new ones, so
   that steady churn keeps the capacity; the JAX package never reuses a
   slot (``reuse_slots=False`` keeps its slot numbers). A write keeps the
-  search's bf16 / int8 shadows and packed table: it patches the shadow
-  rows it wrote and marks in a device mask every row whose neighbours
-  changed, and the next search re-gathers those rows alone.
+  search's bf16 / int8 shadows and packed table (``index.hnsw_tables``):
+  it patches the shadow rows it wrote and marks in a device mask every row
+  whose neighbours changed, and the next search re-gathers those rows
+  alone.
 - Search: exact routing over the promoted pool (``flat_topk`` at
   ``precision="default"``), a level-0 beam guided by bf16 vectors, or by
   int8 ones with one scale per row (``search_quant = "int8"``), whose
@@ -41,14 +42,16 @@ repair, and every search route.
   ``ops.beam.gather_block_dots``, then an exact f32 rescore of the beam. On
   the card each step of that beam is one ``ops.beam_step`` kernel launch
   wherever ``ops.beam_step.step_engine`` admits its inputs.
-  Below ``exact_small_n`` stored rows search is exact ``flat_topk``. Two
+  Below ``exact_small_n`` stored rows search is exact ``flat_topk``.
+  ``HnswIndex._choose_route`` alone picks the engine (``Route``), and one
+  body, ``HnswIndex._search_chunk``, runs every route a chunk. Two
   other beam engines over the same packed bf16 table: ``beam_topm > 0``
   keeps each pick's best candidates in ``ops.beam.gather_block_topm``, and
   ``beam_whole`` runs the whole beam in one ``ops.beam_loop.beam_loop``
   kernel per query. ``search_degree`` searches only the first columns of
   each neighbour row, in every engine. A graph without promoted nodes
   starts its beam at the entry point, and ``search_bf16 = False`` routes
-  and searches in f32 (``_search_slots``).
+  and searches in f32 (the "rows" route).
 
 PyTorch runs eagerly: the beam's ``lax.while_loop`` is a Python loop of at
 most ``max_iters`` steps that reads one go-on flag back per step. The JAX
@@ -67,6 +70,7 @@ import numpy as np
 import torch
 
 from muninn_tpu_torch.index.flat import _query_tensor, _search_ids
+from muninn_tpu_torch.index.hnsw_tables import SearchTables, int8_guidance, pow2_pad
 from muninn_tpu_torch.index.store import VectorStore
 from muninn_tpu_torch.ops.beam_loop import beam_loop
 from muninn_tpu_torch.ops.beam_step import (
@@ -82,7 +86,6 @@ from muninn_tpu_torch.ops.distance import (
     gathered_distances,
     pairwise_distances,
     parse_metric,
-    quantize_rows_int8,
     squared_norms,
 )
 from muninn_tpu_torch.ops.flat_topk import flat_topk
@@ -90,7 +93,6 @@ from muninn_tpu_torch.ops.topk import (
     _dedup_ids,
     masked_topk,
     merge_topk,
-    smallest_k,
     sorted_topk_unique,
 )
 from muninn_tpu_torch.tracing import host_read, request, span
@@ -100,72 +102,71 @@ _SWEEP_ROWS = 8192    # rows per chunk of the bulk kNN sweep and the prune
 _PRUNE_ROWS = 4096    # rows per chunk of an MN-RU prune: [rows, 4M * 2M] reads
 _REPAIR_ROWS = 4096   # affected rows per call of a delete's eager repair
 _INF = float("inf")
-SEARCH_QUANTS = ("bf16", "int8")  # the beam's guidance rows
 INSERT_MODES = ("exact", "beam")  # a wave's candidate source
-
-
-def _pow2_pad(members: np.ndarray) -> np.ndarray:
-    """``members`` -1-padded to a power of two of at least 64."""
-    size = 1 << int(np.ceil(np.log2(max(len(members), 64))))
-    return np.pad(members, (0, size - len(members)), constant_values=-1)
 
 
 # ───────────────────────── search ─────────────────────────
 
 
-def _greedy_descent(
-    queries: torch.Tensor,         # [B, d]
-    entry: torch.Tensor,           # [B] int32 starting slots
-    level_of_query: torch.Tensor,  # [B] int32: descend while level > this
-    vectors: torch.Tensor,         # [cap, d]
-    hi_index: torch.Tensor,        # [cap] int32 -> row of hi_neighbors, -1
-    hi_neighbors: torch.Tensor,    # [cap_hi, L, M] int32
-    cur_max_level: int,
-    metric: Metric,
-    max_steps: int = 64,
-) -> torch.Tensor:
-    """Greedy 1-beam descent through the upper levels, batched over queries
-    (``hnsw.py:75-144``, ``greedy_search_layer`` of src/hnsw_algo.c:257-282
-    from the top level down). Eight levels from ``cur_max_level`` down; at
-    each, a query above its ``level_of_query`` moves to its closest
-    neighbour while that improves, at most ``max_steps`` steps a level for
-    the batch. Returns the slots the descent ends on. Neither package's
-    search calls it (exact routing over the promoted pool replaces it)."""
-    b = queries.shape[0]
-    width = hi_neighbors.shape[1]
-    cur = entry.clone()
-    for lvl_from_top in range(8):
-        level = cur_max_level - lvl_from_top
-        active = level > level_of_query
-        lvl_row = min(max(level - 1, 0), width - 1)
-        cur_d = gathered_distances(queries, vectors[cur.clamp(min=0).long()][:, None],
-                                   metric)[:, 0]
-        cur_d = torch.where(cur >= 0, cur_d, _INF)
-        improved = torch.ones(b, dtype=torch.bool, device=queries.device)
-        it = 0
-        while bool(improved.any()) and it < max_steps:
-            rows = hi_index[cur.clamp(min=0).long()]
-            nbrs = hi_neighbors[rows.clamp(min=0).long(), lvl_row]
-            nbrs = torch.where((rows >= 0)[:, None], nbrs, -1)
-            nd = gathered_distances(queries, vectors[nbrs.clamp(min=0).long()], metric)
-            nd = torch.where(nbrs >= 0, nd, _INF)
-            best_d, best = smallest_k(nd, 1)
-            best_i = torch.gather(nbrs, 1, best)[:, 0]
-            improved = (best_d[:, 0] < cur_d) & active
-            cur = torch.where(improved, best_i, cur)
-            cur_d = torch.where(improved, best_d[:, 0], cur_d)
-            it += 1
-    return cur
+@dataclass(frozen=True, eq=False)
+class Route:
+    """How a search runs, as ``HnswIndex._choose_route`` decides it, with
+    the tables it reads. ``engine`` names the level-0 beam:
+
+    - "kernel": one ``beam_step`` kernel launch a step (``ops.beam_step``);
+    - "eager": ``beam_step_plain`` a step, over packed blocks or rows;
+    - "topm": the eager step, each pick's ``topm`` best candidates kept by
+      ``gather_block_topm``;
+    - "whole": the whole beam in one ``beam_loop`` kernel per query;
+    - "rows": the row beam of JAX's ``_search_slots`` (``hnsw.py:933-972``)
+      over f32 rows, or bf16 ones with ``search_bf16``, seeded at the entry
+      point while no node is promoted, else by exact f32 routing, at the
+      default patience, step budget and dedup over whole rows.
+
+    The other four route by ``flat_topk`` over the promoted pool's rows."""
+
+    engine: str
+    rows: torch.Tensor                     # [cap, d] the beam's guidance rows
+    scales: torch.Tensor | None            # [cap] their dequant (int8 rows)
+    neighbors0: torch.Tensor               # [cap, R0] as the beam reads it
+    packed: torch.Tensor | None = None     # [cap, R0, d] neighbour blocks
+    pscales: torch.Tensor | None = None    # [cap, R0] their dequant (int8)
+    pool: torch.Tensor | None = None       # [Mp] promoted slots, -1 pad
+    pool_rows: torch.Tensor | None = None  # [Mp, d] their f32 rows
+    topm: int = 0
+    patience: int = 0
+    max_iters: int = 0
+    dedup: bool = True
 
 
-def _route_entries(q: torch.Tensor, vectors: torch.Tensor, pool: torch.Tensor,
-                   metric: Metric, r: int) -> torch.Tensor:
-    """Exact f32 routing (``hnsw.py:148-164``): the ``r`` nearest promoted
-    slots of each query by ``pairwise_distances`` over the pooled rows, -1
-    where the pool has fewer."""
-    dd = pairwise_distances(q, vectors[pool.clamp(min=0).long()], metric)
-    _, sel = masked_topk(dd, r, mask=(pool >= 0)[None, :], ids=pool[None, :])
-    return sel
+def _route(q: torch.Tensor, pool: torch.Tensor, pv: torch.Tensor,
+           metric: Metric, r: int, exact: bool = False) -> torch.Tensor:
+    """Exact routing: the ``r`` nearest promoted slots of each query, -1
+    where the pool has fewer; ranked by ``flat_topk`` at
+    ``precision="default"`` over the pooled rows ``pv``, or with ``exact``
+    by f32 ``pairwise_distances`` (``hnsw.py:148-164``)."""
+    with span("hnsw.route", rows=q.shape[0]):
+        if exact:
+            dd = pairwise_distances(q, pv, metric)
+            _, sel = masked_topk(dd, r, mask=(pool >= 0)[None, :], ids=pool[None, :])
+            return sel
+        _, sel = flat_topk(q, pv, r, metric=metric, precision="default",
+                           corpus_valid=pool >= 0)
+        return torch.where(sel >= 0, pool[sel.clamp(min=0).long()], -1)
+
+
+def _first_beam(q: torch.Tensor, entry: torch.Tensor, rows: torch.Tensor,
+                scales: torch.Tensor | None, metric: Metric, ef: int):
+    """The beam a search starts from: the entries ``[B, R]`` scored from
+    their guidance rows, then ``(inf, -1)`` up to ``ef``."""
+    b, dev = q.shape[0], q.device
+    e_d = gathered_distances(q, fetch_rows(rows, scales, entry.clamp(min=0).long()),
+                             metric)
+    beam_d = torch.full((b, ef), _INF, device=dev)
+    beam_i = torch.full((b, ef), -1, dtype=torch.int32, device=dev)
+    beam_d[:, : entry.shape[1]] = torch.where(entry >= 0, e_d, _INF)
+    beam_i[:, : entry.shape[1]] = entry
+    return beam_d, beam_i
 
 
 def _beam_search_level0(
@@ -183,6 +184,7 @@ def _beam_search_level0(
     scales: torch.Tensor | None = None,   # [cap] f32 dequant (int8 vectors)
     pscales: torch.Tensor | None = None,  # [cap, R0] dequant (int8 packed)
     topm: int = 0,                        # > 0: per-pick top-m in the kernel
+    engine: str = "eager",                # or "kernel": beam_step launches
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Batched ef-bounded beam search at level 0 (``hnsw.py:172-421``).
 
@@ -194,12 +196,11 @@ def _beam_search_level0(
     no query has an unexpanded entry within its patience (``max(ef/4, 10)``
     non-improving expansions by default), or after ``max_iters`` steps.
 
-    A step is ``ops.beam_step.beam_step_plain``, or, where
-    ``step_engine`` admits the inputs (a CUDA beam over a packed table,
-    ``topm == 0``, ``ef`` and ``E * R0`` within the kernel's limits), one
+    A step is ``ops.beam_step.beam_step_plain``, or with ``engine="kernel"``
+    (a CUDA beam over a packed table that ``step_engine`` admits) one
     ``beam_step`` kernel launch with the same results, which ORs the next
     step's go-on flag into a device flag; the ``hnsw.beam`` span's
-    ``engine`` attribute says which ("kernel" or "eager"). With ``packed``,
+    ``engine`` attribute says which. With ``packed``,
     candidates are scored from the picks' packed blocks through
     ``gather_block_dots`` (the kernel on CUDA, its plain version on the
     CPU); without, from rows of ``vectors``. int8 guidance
@@ -211,8 +212,7 @@ def _beam_search_level0(
     candidates in the beam get a +BIG penalty and ``gather_block_topm``
     keeps each pick's ``topm`` best, so the same-step dedup and the merge
     run over ``E * topm`` candidates; ``topm == R0`` gives the dots path's
-    beam. Returns ``(beam_dists [B, ef], beam_slots [B, ef] int32)``,
-    ascending."""
+    beam. Returns ``(beam_d [B, ef], beam_i [B, ef] int32)``, ascending."""
     with span("hnsw.beam", rows=queries.shape[0]) as beam:
         b = queries.shape[0]
         dev = queries.device
@@ -222,21 +222,13 @@ def _beam_search_level0(
             patience = max(ef // 4, 10)  # counted in expansions
         if max_iters <= 0:
             max_iters = 2 * (ef // expand + 1) + patience // expand + 8
-        engine = step_engine(dev, packed, topm, ef, expand)
         beam.set(engine=engine)
 
         qf = queries.float().contiguous()
         qn2 = squared_norms(qf)[:, None]
-
         if entry.ndim == 1:
             entry = entry[:, None]
-        r_ent = entry.shape[1]
-        e_d = gathered_distances(
-            qf, fetch_rows(vectors, scales, entry.clamp(min=0).long()), metric)
-        beam_d = torch.full((b, ef), _INF, device=dev)
-        beam_i = torch.full((b, ef), -1, dtype=torch.int32, device=dev)
-        beam_d[:, :r_ent] = torch.where(entry >= 0, e_d, _INF)
-        beam_i[:, :r_ent] = entry
+        beam_d, beam_i = _first_beam(qf, entry, vectors, scales, metric, ef)
         expanded = torch.zeros((b, ef), dtype=torch.bool, device=dev)
         stall = torch.zeros(b, dtype=torch.int64, device=dev)
         if engine == "kernel":
@@ -275,94 +267,42 @@ def _beam_search_level0(
     return beam_d, beam_i
 
 
-def _route(q: torch.Tensor, pool: torch.Tensor, pv: torch.Tensor,
-           metric: Metric, r: int) -> torch.Tensor:
-    """Exact routing: the ``r`` nearest promoted slots of each query
-    (``flat_topk`` at ``precision="default"`` over the pooled rows), -1
-    where the pool has fewer."""
-    with span("hnsw.route", rows=q.shape[0]):
-        _, sel = flat_topk(q, pv, r, metric=metric, precision="default",
-                           corpus_valid=pool >= 0)
-        return torch.where(sel >= 0, pool[sel.clamp(min=0).long()], -1)
-
-
 def _rescore_topk(q: torch.Tensor, vectors: torch.Tensor, valid: torch.Tensor,
-                  beam_i: torch.Tensor, metric: Metric, k: int):
+                  beam_i: torch.Tensor, metric: Metric, k: int,
+                  beam_d: torch.Tensor | None = None):
     """Soft-delete filter, exact f32 rescore of the beam's rows, top-k: the
-    bf16 (or int8) beam decides which rows, the f32 store their
-    distances."""
+    bf16 (or int8) beam decides which rows, the f32 store their distances.
+    A beam guided by the f32 rows themselves passes its own ``beam_d``,
+    which is kept."""
     with span("hnsw.rescore", rows=q.shape[0]):
         ok = (beam_i >= 0) & valid[beam_i.clamp(min=0).long()]
         beam_i = torch.where(ok, beam_i, -1)
-        d = gathered_distances(q, vectors[beam_i.clamp(min=0).long()], metric)
-        return sorted_topk_unique(torch.where(ok, d, _INF), beam_i, k)
+        if beam_d is None:
+            beam_d = gathered_distances(q, vectors[beam_i.clamp(min=0).long()],
+                                        metric)
+        return sorted_topk_unique(torch.where(ok, beam_d, _INF), beam_i, k)
 
 
-def _search_topk_fused(
-    q: torch.Tensor,           # [B, d] f32
-    pool: torch.Tensor,        # [Mp] promoted slots, -1 pad
-    pv: torch.Tensor,          # [Mp, d] pooled f32 vectors
-    vectors: torch.Tensor,     # [cap, d] f32 store
-    v16: torch.Tensor,         # [cap, d] bf16 / int8 shadow for the beam
-    neighbors0: torch.Tensor,  # [cap, R0]
-    valid: torch.Tensor,       # [cap] bool
-    metric: Metric,
-    k: int,
-    ef: int,
-    expand: int,
-    r: int,
-    patience: int = 0,
-    packed: torch.Tensor | None = None,
-    dedup: bool = True,
-    max_iters: int = 0,
-    scales: torch.Tensor | None = None,
-    pscales: torch.Tensor | None = None,
-    topm: int = 0,
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """The query path (``hnsw.py:429-473``): routing over the promoted pool,
-    bf16 or int8 beam, soft-delete filter, exact f32 rescore, top-k."""
-    entries = _route(q, pool, pv, metric, r)
-    _, beam_i = _beam_search_level0(
-        q, entries, v16, neighbors0, metric, ef, expand,
-        max_iters=max_iters, patience=patience, packed=packed, dedup=dedup,
-        scales=scales, pscales=pscales, topm=topm,
-    )
-    return _rescore_topk(q, vectors, valid, beam_i, metric, k)
-
-
-def _search_topk_whole(
-    q: torch.Tensor,           # [B, d] f32
-    pool: torch.Tensor,        # [Mp] promoted slots, -1 pad
-    pv: torch.Tensor,          # [Mp, d] pooled f32 vectors
-    vectors: torch.Tensor,     # [cap, d] f32 store
-    v16: torch.Tensor,         # [cap, d] bf16 shadow (entry scoring)
-    packed: torch.Tensor,      # [cap, R0, d] bf16 neighbour blocks
-    neighbors0: torch.Tensor,  # [cap, R0] int32, the blocks' ids
-    valid: torch.Tensor,       # [cap] bool
-    metric: Metric,
-    k: int,
-    ef: int,
-    expand: int,
-    r: int,
-    patience: int = 0,
-    max_iters: int = 0,
-    pick_xfer: str = "dma",
-) -> tuple[torch.Tensor, torch.Tensor]:
-    """The whole-beam query path (``hnsw.py:481-527``): routing, entry
-    distances from the bf16 shadow, the whole level-0 beam in one
-    ``beam_loop`` kernel, then ``_search_topk_fused``'s filter, rescore and
-    top-k."""
-    entries = _route(q, pool, pv, metric, r)
-    e_d = gathered_distances(q, v16[entries.clamp(min=0).long()].float(), metric)
-    b, dev = q.shape[0], q.device
-    init_d = torch.full((b, ef), _INF, device=dev)
-    init_i = torch.full((b, ef), -1, dtype=torch.int32, device=dev)
-    init_d[:, : entries.shape[1]] = torch.where(entries >= 0, e_d, _INF)
-    init_i[:, : entries.shape[1]] = entries
-    with span("hnsw.beam_whole", rows=b):
-        _, beam_i = beam_loop(q, init_d, init_i, packed, neighbors0, metric,
-                              ef, expand, patience, max_iters, pick_xfer)
-    return _rescore_topk(q, vectors, valid, beam_i, metric, k)
+def _chunked(q: torch.Tensor, most: int, pad: bool, one):
+    """``one`` over query chunks of at most ``most`` rows, each in an
+    ``hnsw.chunk`` span. With ``pad``, a batch over ``most`` is cut into
+    chunks of balanced, 256-aligned size, the last one padded with zero
+    rows; every query's beam is its own, so the padding changes no answer."""
+    b = q.shape[0]
+    if b <= most:
+        with span("hnsw.chunk", rows=b):
+            return one(q)
+    if pad:
+        n_chunks = -(-b // most)
+        most = -(-(-(-b // n_chunks)) // 256) * 256
+        q = torch.nn.functional.pad(q, (0, 0, 0, n_chunks * most - b))
+    parts = []
+    for s in range(0, q.shape[0], most):
+        qc = q[s : s + most]
+        with span("hnsw.chunk", rows=qc.shape[0]):
+            parts.append(one(qc))
+    return (torch.cat([p[0] for p in parts])[:b],
+            torch.cat([p[1] for p in parts])[:b])
 
 
 # ───────────────────────── bulk build ─────────────────────────
@@ -548,7 +488,7 @@ class HnswIndex:
     ("exact" or "beam"), ``route_entries``, ``build_precision``,
     ``search_bf16``, ``search_quant`` ("bf16" or "int8" beam guidance),
     ``beam_patience``, ``beam_max_iters``, ``beam_dedup``,
-    ``search_degree``, ``beam_topm``, ``beam_whole``, ``beam_pick_xfer``,
+    ``search_degree``, ``beam_topm``, ``beam_whole``,
     ``pack_budget_bytes``, ``exact_small_n``; ``seed_rng(seed)`` resets the
     level sampling. ``reuse_slots`` (default True) lets waves take the slots
     that deletes freed; False keeps the JAX package's slot numbers. ``device``
@@ -617,7 +557,7 @@ class HnswIndex:
         # rows; "beam", an f32 level-0 beam at ef_construction
         self.insert_mode = "exact"
         # route with flat_topk and guide the beam by the search_quant shadow
-        # (True), or route and search in f32 (False, _search_slots). True on
+        # (True), or route and search in f32 (False, the "rows" route). True on
         # every device; the JAX package defaults to it on a TPU only
         self.search_bf16 = True
         # beam guidance: "bf16" rows, or "int8" rows with one scale per row
@@ -629,7 +569,6 @@ class HnswIndex:
         # search over only the first search_degree neighbours of each row
         # (rows are distance-sorted): None, or >= 2M, reads them all
         self.search_degree: int | None = None
-        self._sd_cache: tuple | None = None
         # > 0: each pick keeps its beam_topm best candidates in the top-m
         # kernel (ops.beam.gather_block_topm), so the dedup and merge run
         # over expand * beam_topm candidates; bf16 guidance with a packed
@@ -637,11 +576,8 @@ class HnswIndex:
         self.beam_topm = 0
         # the whole level-0 beam in one kernel (ops.beam_loop): False, True
         # (on a CUDA index) or "force" (on any device); bf16 guidance only,
-        # otherwise the fused path runs
+        # otherwise the step engines run
         self.beam_whole: bool | str = False
-        # the TPU kernel's pick transfer, "dma" or "scalar": kept for parity,
-        # the same results either way
-        self.beam_pick_xfer = "dma"
         # the packed [cap, R0, d] bf16 (or int8, with [cap, R0] scales)
         # neighbour table: built whole at the first search on a CUDA device
         # when it fits the budget (on the CPU only through pack_neighbors()),
@@ -649,19 +585,13 @@ class HnswIndex:
         self.pack_budget_bytes = 4 << 30
         # at or below this many stored rows, search is exact flat_topk
         self.exact_small_n = 8192
-        self._pool_cache: torch.Tensor | None = None
-        self._pool_dirty = True
-        self._packed: torch.Tensor | None = None
-        self._packed_scales: torch.Tensor | None = None
-        self._packed_quant = "bf16"  # the guidance the packed table holds
-        # rows of the packed table that writes changed ([cap] bool on the
-        # device), and their slots once a write ended: the next search
-        # re-gathers them
-        self._dirty: torch.Tensor | None = None
-        self._dirty_rows: torch.Tensor | None = None
-        self._v16: torch.Tensor | None = None
-        self._v8: tuple[torch.Tensor, torch.Tensor] | None = None
-        self._pool_vecs_cache: torch.Tensor | None = None
+        # the shadows, the packed table, the slices and the routing pool
+        self.tables = SearchTables(self)
+
+    def __setstate__(self, state):
+        # a copied or unpickled index: its search tables refer to it
+        self.__dict__.update(state)
+        self.tables.bind(self)
 
     @property
     def dim(self) -> int:
@@ -686,7 +616,7 @@ class HnswIndex:
         old = self.neighbors0.shape[0]
         if cap == old:
             return
-        self._drop_search_tables()  # built again whole at the next search
+        self.tables.drop()  # built again whole at the next search
         grow = cap - old
         self.neighbors0 = torch.nn.functional.pad(
             self.neighbors0, (0, 0, 0, grow), value=-1)
@@ -753,12 +683,15 @@ class HnswIndex:
                     q, self.store.vectors[:hw], k, metric=self.metric,
                     corpus_valid=self.store.valid[:hw], precision="highest",
                 )
-            if self.search_bf16 and self._routing_pool() is not None:
-                return self._search_topk_chunked(q, k, ef)
-            beam_d, beam_i = self._search_slots_chunked(q, ef)
-            ok = (beam_i >= 0) & self.store.valid[beam_i.clamp(min=0).long()]
-            return sorted_topk_unique(torch.where(ok, beam_d, _INF),
-                                      torch.where(ok, beam_i, -1), k)
+            route = self._choose_route(ef)
+            cap = max(self.store.capacity, 1)
+            if route.engine == "rows":
+                # the row beam's gathers bound its chunks (hnsw.py:914-931)
+                most, pad = max(256, min(4096, (1 << 28) // cap)), False
+            else:
+                most, pad = max(1024, min(8192, (1 << 29) // cap)), True
+            return _chunked(q, most, pad,
+                            lambda qc: self._search_chunk(qc, route, k, ef))
 
     def search(self, queries, k: int = 10, ef_search: int | None = None):
         """Batched KNN. Returns ``(ids int64 [B, k], dists f32 [B, k])``
@@ -766,272 +699,94 @@ class HnswIndex:
         gives 1-D arrays."""
         return _search_ids(self, queries, k, ef_search)
 
-    def _int8_guidance(self) -> bool:
-        """Whether the beam is guided by int8 rows; a ``search_quant``
-        outside ``SEARCH_QUANTS`` raises."""
-        if self.search_quant not in SEARCH_QUANTS:
-            raise ValueError(
-                f"search_quant must be one of {SEARCH_QUANTS}, got"
-                f" {self.search_quant!r}"
-            )
-        return self.search_quant == "int8"
+    def _choose_route(self, ef: int) -> Route:
+        """The one decision of how a search at ``ef`` runs (``hnsw.py:779-
+        931``), from what the index can observe: its device,
+        ``search_bf16``, ``search_quant``, whether a routing pool and a
+        packed table exist, ``beam_topm``, ``beam_whole`` and the step
+        kernel's limits (``step_engine``). It asks the search tables for
+        the tables of the route it takes; a ``search_quant`` outside
+        ``SEARCH_QUANTS`` raises.
 
-    def _search_topk_chunked(self, q: torch.Tensor, k: int, ef: int):
-        int8 = self._int8_guidance()
-        pool = self._routing_pool()
-        pv = self._pool_vecs(pool)
-        r = min(self.route_entries, ef)
+        Without ``search_bf16`` or a promoted node: the "rows" beam. Else
+        "whole" where ``beam_whole`` is "force", or True on a CUDA index,
+        the guidance bf16 and a packed table there ("force" packs on any
+        device); else "topm" over a packed bf16 table where ``beam_topm >
+        0`` (capped at the read degree, where it is the dots path's beam);
+        else ``step_engine``'s "kernel" or "eager"."""
+        t = self.tables
+        pool = t.pool()
+        if not (self.search_bf16 and pool is not None):
+            rows = t.vecs16() if self.search_bf16 else self.store.vectors
+            pv = None if pool is None else t.pool_vectors(pool)
+            return Route("rows", rows, None, self.neighbors0, pool=pool,
+                         pool_rows=pv)
+        int8 = int8_guidance(self.search_quant)
+        pv = t.pool_vectors(pool)
         if self.beam_max_iters == 0:
             mi = -(-ef // max(self.expand, 1)) + 1  # about ef expansions
         elif self.beam_max_iters < 0:
             mi = 0                                  # to convergence
         else:
             mi = self.beam_max_iters
-
-        # the whole-beam path (hnsw.py:820-845), checked before the fused
-        # path's table is built; it reads the same packed bf16 table
-        whole = self.beam_whole == "force" or (
-            bool(self.beam_whole) and self.device.type == "cuda")
-        if whole and not int8:
-            packed = self._maybe_packed(force=self.beam_whole == "force")
-            if packed is not None:
-                nbrs0, packed, _ = self._search_tables(packed, None)
-                v16 = self._vecs16()
-
-                def one_whole(qc):
-                    return _search_topk_whole(
-                        qc, pool, pv, self.store.vectors, v16, packed, nbrs0,
-                        self.store.valid, self.metric, k, ef, self.expand, r,
-                        self.beam_patience, mi, self.beam_pick_xfer,
-                    )
-
-                return self._run_chunked(q, one_whole)
-
-        scales = None
-        if int8:
-            v16, scales = self._vecs8()
-        else:
-            v16 = self._vecs16()
-        packed = self._maybe_packed()
-        pscales = self._packed_scales if packed is not None else None
-        nbrs0, packed, pscales = self._search_tables(packed, pscales)
+        whole = not int8 and (self.beam_whole == "force" or (
+            bool(self.beam_whole) and self.device.type == "cuda"))
+        rows, scales = t.vecs8() if int8 else (t.vecs16(), None)
+        packed = t.pack(force=whole)
+        nbrs0, packed, pscales = t.degree(
+            packed, t.scales if packed is not None else None)
+        beam = dict(pool=pool, pool_rows=pv, patience=self.beam_patience,
+                    max_iters=mi)
+        if whole and packed is not None:
+            return Route("whole", rows, None, nbrs0, packed, **beam)
         # the top-m kernel takes f32/bf16 blocks (hnsw.py:889-890)
         topm = (max(0, min(self.beam_topm, nbrs0.shape[1]))
                 if packed is not None and pscales is None else 0)
+        engine = "topm" if topm else step_engine(self.device, packed, topm, ef,
+                                                 self.expand)
+        return Route(engine, rows, scales, nbrs0, packed, pscales, topm=topm,
+                     dedup=self.beam_dedup, **beam)
 
-        def one(qc):
-            return _search_topk_fused(
-                qc, pool, pv, self.store.vectors, v16, nbrs0,
-                self.store.valid, self.metric, k, ef, self.expand, r,
-                self.beam_patience, packed, self.beam_dedup, mi, scales,
-                pscales, topm,
-            )
-
-        return self._run_chunked(q, one)
-
-    def _search_tables(self, packed: torch.Tensor | None,
-                       pscales: torch.Tensor | None):
-        """``(neighbors0, packed, pscales)`` as the beam reads them: their
-        first ``search_degree`` columns when that is below ``2M``
-        (``hnsw.py:850-869``). The slices are copied once and cached, keyed
-        on the knob and the identity of the source tables, which the cache
-        keeps alive so that the identity stays sound; every write drops it
-        (``_after_write``), since a patch in place keeps the identity."""
-        sd = self.search_degree
-        if not sd or sd >= self.m0:
-            return self.neighbors0, packed, pscales
-        c = self._sd_cache
-        if not (c is not None and c[0] == sd and c[1] is self.neighbors0
-                and c[2] is packed and c[3] is pscales):
-            def cut(t):
-                return None if t is None else t[:, :sd].contiguous()
-
-            self._sd_cache = c = (sd, self.neighbors0, packed, pscales,
-                                  cut(self.neighbors0), cut(packed),
-                                  cut(pscales))
-        return c[4], c[5], c[6]
-
-    def _run_chunked(self, q: torch.Tensor, one):
-        """Run ``one`` over query chunks of balanced, 256-aligned size, at
-        most ``2**29 / capacity`` (1,024 to 8,192) queries each."""
-        b = q.shape[0]
-        chunk = int(max(1024, min(8192, (1 << 29) // max(self.store.capacity, 1))))
-        if b <= chunk:
-            with span("hnsw.chunk", rows=b):
-                return one(q)
-        n_chunks = -(-b // chunk)
-        chunk = -(-(-(-b // n_chunks)) // 256) * 256
-        qp = torch.nn.functional.pad(q, (0, 0, 0, n_chunks * chunk - b))
-        parts = []
-        for s in range(0, qp.shape[0], chunk):
-            with span("hnsw.chunk", rows=chunk):
-                parts.append(one(qp[s : s + chunk]))
-        return (torch.cat([p[0] for p in parts])[:b],
-                torch.cat([p[1] for p in parts])[:b])
-
-    def _search_slots_chunked(self, q: torch.Tensor, ef: int):
-        """``_search_slots`` over query chunks of at most ``2**28 /
-        capacity`` (256 to 4,096) queries, which bound the beam's gathers
-        (``hnsw.py:914-931``; every query's beam is its own, so the chunks
-        need no padding)."""
-        chunk = int(max(256, min(4096, (1 << 28) // max(self.store.capacity, 1))))
-        parts = [self._search_slots(q[s : s + chunk], ef)
-                 for s in range(0, q.shape[0], chunk)]
-        return torch.cat([p[0] for p in parts]), torch.cat([p[1] for p in parts])
-
-    def _search_slots(self, q: torch.Tensor, ef: int):
-        """Routing and a level-0 beam without the fused query path
-        (``hnsw.py:933-972``), for the searches ``search_device`` sends here:
-        the entry point seeds the beam while no node is promoted, else the
-        pool routes by exact f32 distances (``search_bf16`` is False then).
-        With ``search_bf16`` the beam runs over the bf16 rows and its rows
-        are rescored in f32; without, it runs over the f32 rows. Returns
-        slot-space beams ``(dists, slots)``, ascending."""
-        pool = self._routing_pool()
-        if pool is None:
-            entries = torch.full((q.shape[0], 1), self.entry_point,
-                                 dtype=torch.int32, device=self.device)
+    def _search_chunk(self, q: torch.Tensor, route: Route, k: int, ef: int):
+        """One chunk of a search (``hnsw.py:429-527``, ``:933-972``): the
+        route's entries, its level-0 beam, then ``_rescore_topk``'s filter,
+        rescore (none where f32 rows guided the beam) and top-k."""
+        st = self.store
+        r = min(self.route_entries, ef)
+        if route.engine != "rows":
+            entry = _route(q, route.pool, route.pool_rows, self.metric, r)
+        elif route.pool is not None:
+            entry = _route(q, route.pool, route.pool_rows, self.metric, r,
+                           exact=True)
         else:
-            entries = _route_entries(q, self.store.vectors, pool, self.metric,
-                                     min(self.route_entries, ef))
-        if not self.search_bf16:
-            return _beam_search_level0(q, entries, self.store.vectors,
-                                       self.neighbors0, self.metric, ef,
-                                       self.expand)
-        _, beam_i = _beam_search_level0(q, entries, self._vecs16(),
-                                        self.neighbors0, self.metric, ef,
-                                        self.expand)
-        d = gathered_distances(q, self.store.vectors[beam_i.clamp(min=0).long()],
-                               self.metric)
-        d, order = torch.sort(torch.where(beam_i >= 0, d, _INF), dim=1, stable=True)
-        return d, torch.gather(beam_i, 1, order)
-
-    def _vecs16(self) -> torch.Tensor:
-        if self._v16 is None:
-            self._v16 = self.store.vectors.bfloat16()
-        return self._v16
-
-    def _vecs8(self) -> tuple[torch.Tensor, torch.Tensor]:
-        """The int8 guidance shadow: rows quantized as stored (not
-        normalised), one f32 scale per row (``hnsw.py:979-982``)."""
-        if self._v8 is None:
-            self._v8 = quantize_rows_int8(self.store.vectors)
-        return self._v8
-
-    def _pool_vecs(self, pool: torch.Tensor) -> torch.Tensor:
-        if self._pool_vecs_cache is None:
-            self._pool_vecs_cache = self.store.vectors[pool.clamp(min=0).long()]
-        return self._pool_vecs_cache
-
-    def _drop_search_tables(self) -> None:
-        """Drop every search cache: the shadows, the packed table and its
-        dirty rows (a bulk build, a change of capacity)."""
-        self._v16 = None
-        self._v8 = None
-        self._packed = None
-        self._packed_scales = None
-        self._dirty = None
-        self._dirty_rows = None
-        self._after_write()
-
-    def _after_write(self) -> None:
-        """What any write drops: the routing pool's rows and the
-        ``search_degree`` slices, whose keys a patch in place keeps."""
-        self._pool_vecs_cache = None
-        self._sd_cache = None
-
-    def _patch_shadows(self, slots: torch.Tensor, rows: torch.Tensor) -> None:
-        """Write the guidance shadows' rows of ``slots`` from their new f32
-        ``rows``, as a whole conversion of the store would give them."""
-        if self._v16 is not None:
-            self._v16[slots] = rows.bfloat16()
-        if self._v8 is not None:
-            self._v8[0][slots], self._v8[1][slots] = quantize_rows_int8(rows)
-
-    def _mark_dirty(self, rows: torch.Tensor) -> None:
-        """Mark rows (device slots, or a ``[cap]`` mask) whose neighbours
-        changed, for the next search to re-gather from a kept packed table;
-        no host read."""
-        if self._packed is None:
-            return  # the next pack is whole
-        if self._dirty is None:
-            self._dirty = torch.zeros(self.neighbors0.shape[0], dtype=torch.bool,
-                                      device=self.device)
-        if rows.dtype == torch.bool:
-            self._dirty |= rows
+            entry = torch.full((q.shape[0], 1), self.entry_point,
+                               dtype=torch.int32, device=self.device)
+        if route.engine == "whole":
+            init_d, init_i = _first_beam(q, entry, route.rows, None, self.metric, ef)
+            with span("hnsw.beam_whole", rows=q.shape[0]):
+                beam_d, beam_i = beam_loop(q, init_d, init_i, route.packed,
+                                           route.neighbors0, self.metric, ef,
+                                           self.expand, route.patience,
+                                           route.max_iters)
         else:
-            self._dirty[rows] = True
+            beam_d, beam_i = _beam_search_level0(
+                q, entry, route.rows, route.neighbors0, self.metric, ef,
+                self.expand, max_iters=route.max_iters, patience=route.patience,
+                packed=route.packed, dedup=route.dedup, scales=route.scales,
+                pscales=route.pscales, topm=route.topm,
+                engine="kernel" if route.engine == "kernel" else "eager")
+        own = beam_d if route.rows.dtype == torch.float32 else None
+        return _rescore_topk(q, st.vectors, st.valid, beam_i, self.metric, k, own)
 
-    def _settle_dirty(self) -> None:
-        """At the end of a write: the marked rows as slots, for the next
-        search's re-gather."""
-        if self._dirty is not None and self._packed is not None:
-            self._dirty_rows = self._dirty.nonzero().squeeze(1)
+    @property
+    def _packed(self) -> torch.Tensor | None:
+        """The kept packed neighbour table, None until one is packed."""
+        return self.tables.packed
 
     def pack_neighbors(self) -> None:
         """(Re)build the packed neighbour table whole for the current
         ``search_quant``, on any device."""
-        self._packed = None
-        self._packed_scales = None
-        self._sd_cache = None
-        self._maybe_packed(force=True)
-
-    def _maybe_packed(self, force: bool = False) -> torch.Tensor | None:
-        """The packed ``[cap, R0, d]`` table of the beam's guidance,
-        ``v16[neighbors0]`` (bf16), or ``v8[neighbors0]`` (int8) with the
-        neighbours' scales in ``_packed_scales [cap, R0]`` (``-1`` gathers
-        slot 0, as the clamp does). Built whole on a CUDA device, on the CPU
-        only when ``force``d, None over ``pack_budget_bytes``; rebuilt whole
-        when ``search_quant`` changed (``hnsw.py:1007-1032``). A kept table
-        first re-gathers the rows that writes marked (``hnsw.repack``)."""
-        int8 = self._int8_guidance()
-        if self._packed is not None and self._packed_quant == self.search_quant:
-            if self._dirty_rows is not None:
-                self._repack_rows(self._dirty_rows)
-            return self._packed
-        need = self.store.capacity * self.m0 * self.dim * (1 if int8 else 2)
-        if need > self.pack_budget_bytes:
-            return None
-        if self.device.type == "cpu" and not force:
-            return None  # CPU: keep the row path exercised
-        with span("hnsw.repack", rows=self.neighbors0.shape[0], whole=1):
-            # one gather of the whole table, not one per row
-            nb = self.neighbors0.clamp(min=0).long()
-            if int8:
-                vi, sc = self._vecs8()
-                self._packed, self._packed_scales = vi[nb], sc[nb]
-            else:
-                self._packed, self._packed_scales = self._vecs16()[nb], None
-        self._packed_quant = self.search_quant
-        self._dirty = self._dirty_rows = None
-        return self._packed
-
-    def _repack_rows(self, rows: torch.Tensor) -> None:
-        """Re-gather the packed rows ``rows`` from the shadow the table was
-        built from, and clear the marks."""
-        with span("hnsw.repack", rows=rows.shape[0], whole=0):
-            nb = self.neighbors0[rows].clamp(min=0).long()
-            if self._packed_quant == "int8":
-                vi, sc = self._vecs8()
-                self._packed[rows], self._packed_scales[rows] = vi[nb], sc[nb]
-            else:
-                self._packed[rows] = self._vecs16()[nb]
-            self._dirty.zero_()
-        self._dirty_rows = None
-        self._sd_cache = None
-
-    def _routing_pool(self) -> torch.Tensor | None:
-        """Promoted (level >= 1) slots, -1-padded to a power of two; None
-        while the graph has no promoted node."""
-        if self._pool_dirty:
-            members = np.nonzero(self.levels >= 1)[0].astype(np.int32)
-            self._pool_cache = (
-                None if len(members) == 0
-                else torch.as_tensor(_pow2_pad(members), device=self.device)
-            )
-            self._pool_vecs_cache = None
-            self._pool_dirty = False
-        return self._pool_cache
+        self.tables.rebuild()
 
     # ── insert ──
 
@@ -1062,7 +817,7 @@ class HnswIndex:
                         with span("hnsw.wave", rows=len(wave)):
                             self._insert_wave(wave, vecs[s : s + self.wave_size])
             finally:
-                self._settle_dirty()
+                self.tables.write_ended()
                 sp.set(**self._slot_state())
 
     def _slot_state(self) -> dict:
@@ -1072,7 +827,7 @@ class HnswIndex:
 
     def _bulk_build(self, ids: np.ndarray, vectors) -> None:
         n = len(ids)
-        self._drop_search_tables()  # a new graph: packed whole when searched
+        self.tables.drop()  # a new graph: packed whole when searched
         slots = self.store.add(ids, vectors)
         self._sync_capacity()
         levels = self._sample_levels(n)
@@ -1089,7 +844,7 @@ class HnswIndex:
                                           device=self.device)] = (
                 torch.as_tensor(hi_rows, device=self.device))
             self._hi_index_np[slots[promoted]] = hi_rows
-            self._pool_dirty = True
+            self.tables.promotions_changed()
 
         # exact kNN rows: the corpus against itself, +1 for the self-match
         corpus = self.store.vectors[: self.store.high_watermark]
@@ -1141,7 +896,7 @@ class HnswIndex:
             pool = np.nonzero(self.levels >= lv)[0].astype(np.int32)
             if len(members) == 0 or len(pool) <= 1:
                 continue
-            pool_t = torch.as_tensor(_pow2_pad(pool), device=self.device)
+            pool_t = torch.as_tensor(pow2_pad(pool), device=self.device)
             # bound the [P, pool] distance block
             mchunk = max(256, min(4096, (1 << 26) // len(pool)))
             o_parts, s_parts = [], []
@@ -1191,7 +946,7 @@ class HnswIndex:
         bucket = 1 << int(np.ceil(np.log2(max(w, 64))))
         pool = None  # the beam's pre-wave routing pool: the entry point while none
         if self.insert_mode == "beam":
-            pool = None if first else self._routing_pool()
+            pool = None if first else self.tables.pool()
             if pool is None:
                 p = np.full(64, -1, np.int32)
                 if not first:
@@ -1208,13 +963,13 @@ class HnswIndex:
             self._hi_index_np[slots[promoted]] = hi_rows
             self._hi_pending.append((slots[promoted].astype(np.int32),
                                      levels[promoted].astype(np.int32)))
-            self._pool_dirty = True
+            self.tables.promotions_changed()
 
         slots_t = torch.as_tensor(slots, device=self.device)
         self._wire_wave(vecs, slots_t, pool, min(self.m0, max(bucket - 1, 1)))
         if slots[0] == 0:
             # a -1 entry gathers slot 0's row into the packed table
-            self._mark_dirty((self.neighbors0 < 0).any(dim=1))
+            self.tables.neighbours_changed((self.neighbors0 < 0).any(dim=1))
         top = int(np.argmax(levels))
         if first or int(levels[top]) > self.max_level:
             self.max_level = int(levels[top])
@@ -1236,7 +991,7 @@ class HnswIndex:
         hw = st.high_watermark
         at = slots.long()
         st.vectors[at] = qv
-        self._patch_shadows(at, qv)
+        self.tables.rows_written(at, qv)
         if self.insert_mode == "exact":
             # the live rows up to the new high watermark: never an empty
             # corpus, and the wave's own rows are still invalid
@@ -1246,8 +1001,8 @@ class HnswIndex:
             )
         else:  # "beam"
             ef = max(self.ef_construction, m0 + 1)
-            entries = _route_entries(qv, st.vectors, pool, self.metric,
-                                     min(self.route_entries, ef))
+            entries = _route(qv, pool, st.vectors[pool.clamp(min=0).long()],
+                             self.metric, min(self.route_entries, ef), exact=True)
             cand_d, cand_i = _beam_search_level0(
                 qv, entries, st.vectors, self.neighbors0, self.metric, ef,
                 self.expand)
@@ -1277,9 +1032,8 @@ class HnswIndex:
         with span("hnsw.prune", rows=aff.shape[0]):
             _prune_rows(self.neighbors0, self.dists0, append_i, append_d, aff,
                         m0, mn_tiebreak=self.mn_ru)
-        self._mark_dirty(at)
-        self._mark_dirty(aff)
-        self._after_write()
+        self.tables.neighbours_changed(at)
+        self.tables.neighbours_changed(aff)
 
     def _flush_hi_wiring(self) -> None:
         """Wire every queued promotion into the upper levels in one exact
@@ -1322,7 +1076,7 @@ class HnswIndex:
                 for s in range(0, len(ids), self.wave_size):
                     self._delete_wave(ids[s : s + self.wave_size])
             finally:
-                self._settle_dirty()
+                self.tables.write_ended()
                 sp.set(**self._slot_state())
 
     def _delete_wave(self, ids: np.ndarray) -> None:
@@ -1347,9 +1101,8 @@ class HnswIndex:
         self.hi_neighbors = torch.where(
             (hn >= 0) & dmask[hn.clamp(min=0).long()], -1, hn)
         self.hi_index.index_fill_(0, slots_t, -1)
-        self._mark_dirty(refs)
-        self._mark_dirty(dmask)
-        self._after_write()
+        self.tables.neighbours_changed(refs)
+        self.tables.neighbours_changed(dmask)
 
         self.levels[slots] = -1
         hi_rows = self._hi_index_np[slots]
@@ -1358,7 +1111,7 @@ class HnswIndex:
         if self._hi_pending:
             self._hi_pending = [(sl[~np.isin(sl, slots)], lv[~np.isin(sl, slots)])
                                 for sl, lv in self._hi_pending]
-        self._pool_dirty = True
+        self.tables.promotions_changed()
         if self.store.reuse_slots and len(hi_rows):
             # rows queued but never wired may lie past the table
             held = hi_rows[hi_rows < self.hi_neighbors.shape[0]]

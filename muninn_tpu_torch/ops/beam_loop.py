@@ -14,14 +14,11 @@ and of the fused branch of ``_beam_search_level0``
 (``muninn_tpu/index/hnsw.py:271-416``), op for op.
 
 The TPU kernel carries each neighbour id inside its vector block as three
-bf16 byte lanes (``pack_wide``), because a TPU DMA index must be a scalar
-known before the copy. A GPU thread reads ``neighbors0`` itself, so the
-kernel (``csrc/beam_loop.cu``) takes the packed ``[cap, R0, d]`` bf16 table
-of the fused path and ``neighbors0 [cap, R0]`` int32; ``split_id_bytes``
-and ``pack_wide`` are kept with JAX's layout as part of the package's
-surface. ``pick_xfer`` names how the TPU kernel moves its picks into scalar
-memory ("dma" or "scalar"); the GPU has no such step, so both values give
-the same results and any other raises, as in JAX.
+bf16 byte lanes, because a TPU DMA index must be a scalar known before the
+copy, and moves its picks into scalar memory by one of two transfers. A GPU
+thread reads ``neighbors0`` itself, so the kernel (``csrc/beam_loop.cu``)
+takes the packed ``[cap, R0, d]`` bf16 table of the fused path and
+``neighbors0 [cap, R0]`` int32, and has neither step.
 
 ``beam_loop`` picks the path by the tensors' device: CPU tensors go to
 ``beam_loop_plain``, CUDA tensors to the kernel, which raises instead of
@@ -34,7 +31,6 @@ from __future__ import annotations
 
 import ctypes
 
-import numpy as np
 import torch
 
 from muninn_tpu_torch.ops import _build
@@ -51,8 +47,6 @@ from muninn_tpu_torch.ops.distance import (
 )
 from muninn_tpu_torch.ops.topk import smallest_k
 
-ID_LANES = 128  # pack_wide's lanes after d: three id bytes, then zeros
-PICK_XFERS = ("dma", "scalar")
 # The kernel holds one query's beam twice (old and new), its E*R0
 # candidates, its E picks, a hash of the step's ids and, where it fits, the
 # query in shared memory (``_smem_bytes``); at the limits the block takes
@@ -64,39 +58,8 @@ _SCRATCH_WORDS = 32   # kScratchWords in csrc/beam_phases.cuh
 _INF = float("inf")
 
 
-def split_id_bytes(slots) -> np.ndarray:
-    """Byte-split ``slots`` (int, -1 = invalid) into three bf16-exact small
-    integers of ``slots + 1`` (so -1 encodes as all-zero bytes). Returns
-    float32 ``[..., 3]``, high byte first."""
-    v = np.asarray(slots, np.int64) + 1
-    if np.any(v < 0) or np.any(v >= 1 << 24):
-        raise ValueError("slot ids must be in [-1, 2^24 - 1)")
-    out = np.empty(v.shape + (3,), np.float32)
-    out[..., 0] = (v >> 16) & 0xFF
-    out[..., 1] = (v >> 8) & 0xFF
-    out[..., 2] = v & 0xFF
-    return out
-
-
-def pack_wide(vecs16: torch.Tensor, neighbors0: torch.Tensor) -> torch.Tensor:
-    """The TPU kernel's packed-with-ids table ``[cap, R0, d + 128]`` bf16:
-    lanes ``[0, d)`` hold the neighbour rows of ``vecs16``, lanes
-    ``d..d+2`` the byte-split neighbour id (``split_id_bytes``), the rest
-    zero."""
-    nb = torch.as_tensor(neighbors0, dtype=torch.int32, device=vecs16.device)
-    cap, r0 = nb.shape
-    blocks = vecs16[nb.clamp(min=0).long()].bfloat16()
-    v = nb + 1  # -1 encodes as all-zero bytes
-    idb = torch.stack([(v >> 16) & 0xFF, (v >> 8) & 0xFF, v & 0xFF],
-                      dim=2).bfloat16()
-    pad = torch.zeros((cap, r0, ID_LANES - 3), dtype=torch.bfloat16,
-                      device=vecs16.device)
-    return torch.cat([blocks, idb, pad], dim=2)
-
-
 def _check(queries, init_d, init_i, packed, neighbors0, ef: int, expand: int,
-           patience: int, max_iters: int,
-           pick_xfer: str) -> tuple[int, int, int]:
+           patience: int, max_iters: int) -> tuple[int, int, int]:
     """Validate the shapes and knobs; return ``(e, patience, max_iters)``
     with the defaults filled in (``patience = max(ef // 4, 10)``,
     ``max_iters = 2 * (ef // e + 1) + patience // e + 8``)."""
@@ -118,8 +81,6 @@ def _check(queries, init_d, init_i, packed, neighbors0, ef: int, expand: int,
         raise ValueError(f"ef={ef} and expand={expand} must be >= 1")
     if tuple(init_d.shape) != (b, ef) or tuple(init_i.shape) != (b, ef):
         raise ValueError("init beam shape mismatch")
-    if pick_xfer not in PICK_XFERS:
-        raise ValueError(f"unknown pick_xfer {pick_xfer!r}")
     e = min(expand, ef)
     if patience <= 0:
         patience = max(ef // 4, 10)  # counted in expansions, src/hnsw_algo.c:368
@@ -132,7 +93,7 @@ def beam_loop_plain(
     queries: torch.Tensor, init_d: torch.Tensor, init_i: torch.Tensor,
     packed: torch.Tensor, neighbors0: torch.Tensor,
     metric: Metric | str = Metric.COSINE, ef: int = 24, expand: int = 4,
-    patience: int = 0, max_iters: int = 0, pick_xfer: str = "dma",
+    patience: int = 0, max_iters: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor, int, int]:
     """``beam_loop`` in eager torch over ``gather_block_dots_plain``.
     Returns ``(beam_d [B, ef], beam_i [B, ef] int32, expansions, fresh)``:
@@ -140,7 +101,7 @@ def beam_loop_plain(
     rows a reader must load), summed over the batch."""
     metric = parse_metric(metric)
     e, patience, max_iters = _check(queries, init_d, init_i, packed, neighbors0,
-                                    ef, expand, patience, max_iters, pick_xfer)
+                                    ef, expand, patience, max_iters)
     b = queries.shape[0]
     r0 = packed.shape[1]
     c = e * r0
@@ -267,7 +228,7 @@ def beam_loop_cuda(
     queries: torch.Tensor, init_d: torch.Tensor, init_i: torch.Tensor,
     packed: torch.Tensor, neighbors0: torch.Tensor,
     metric: Metric | str = Metric.COSINE, ef: int = 24, expand: int = 4,
-    patience: int = 0, max_iters: int = 0, pick_xfer: str = "dma",
+    patience: int = 0, max_iters: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Launch the whole-beam kernel. Takes contiguous CUDA tensors on one
     card: queries and init_d f32, init_i and neighbors0 int32, packed bf16,
@@ -276,7 +237,7 @@ def beam_loop_cuda(
     block's shared memory exceeded, and on a failed build or launch."""
     metric = parse_metric(metric)
     e, patience, max_iters = _check(queries, init_d, init_i, packed, neighbors0,
-                                    ef, expand, patience, max_iters, pick_xfer)
+                                    ef, expand, patience, max_iters)
     b, d = queries.shape
     cap, r0, _ = packed.shape
     smem = _smem_bytes(d, ef, e, r0)
@@ -325,7 +286,7 @@ def beam_loop(
     queries: torch.Tensor, init_d: torch.Tensor, init_i: torch.Tensor,
     packed: torch.Tensor, neighbors0: torch.Tensor,
     metric: Metric | str = Metric.COSINE, ef: int = 24, expand: int = 4,
-    patience: int = 0, max_iters: int = 0, pick_xfer: str = "dma",
+    patience: int = 0, max_iters: int = 0,
 ) -> tuple[torch.Tensor, torch.Tensor]:
     """Run the whole level-0 beam from ``(init_d, init_i) [B, ef]`` (entry
     distances, +inf padded; entry slots, -1 padded) over ``packed [cap, R0,
@@ -336,7 +297,6 @@ def beam_loop(
     CPU tensors run ``beam_loop_plain``; CUDA tensors run the kernel."""
     args = (queries, init_d, init_i, packed, neighbors0)
     if all(t.device.type == "cpu" for t in args):
-        return beam_loop_plain(*args, metric, ef, expand, patience, max_iters,
-                               pick_xfer)[:2]
-    return beam_loop_cuda(*args, metric, ef, expand, patience, max_iters,
-                          pick_xfer)
+        return beam_loop_plain(*args, metric, ef, expand, patience,
+                               max_iters)[:2]
+    return beam_loop_cuda(*args, metric, ef, expand, patience, max_iters)

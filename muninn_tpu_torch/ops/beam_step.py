@@ -21,7 +21,8 @@ step, score the rest and merge one top-``ef``, with fill-aware patience.
   one flag a step and launches nothing else.
 - ``step_engine``: which of the two a beam takes, from what its inputs
   show (device, packed table, ``topm``, shapes): the kernel wherever it
-  takes the step, the eager step elsewhere. One algorithm, one result.
+  takes the step, the eager step elsewhere; ``HnswIndex._choose_route``
+  asks it. One algorithm, one result.
 
 ``beam_step`` picks by the tensors' device: CPU tensors go to the plain
 version, CUDA tensors to the kernel, which raises instead of falling back

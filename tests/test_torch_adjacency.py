@@ -11,6 +11,8 @@ nodes, edges and block layout and equal BFS, components and PageRank; the
 numpy carry-across (``graph.convert``) both ways.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import json
 import os
 import time

@@ -8,6 +8,8 @@ fused beam (``fused=True, interpret=True``), as ``tests/test_hnsw.py``
 holds the fused beam against the XLA one.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

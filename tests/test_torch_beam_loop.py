@@ -2,13 +2,15 @@
 the CPU.
 
 The same seeded numpy inputs go through ``beam_loop_plain`` and the Pallas
-``beam_loop`` in interpret mode (as ``tests/test_beam_loop.py`` runs it):
-``split_id_bytes`` and ``pack_wide`` are equal to JAX's, integer-grid
+``beam_loop`` in interpret mode (as ``tests/test_beam_loop.py`` runs it,
+over JAX's ``pack_wide`` table and either pick transfer): integer-grid
 vectors (every dot and squared norm exact in f32) give bit-equal slots,
 Gaussian rows give the same beams up to float noise at near-ties, and the
 plain loop equals the port's own fused beam (``_beam_search_level0`` over
 packed blocks).
 """
+
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
 
 import re
 from pathlib import Path
@@ -21,48 +23,20 @@ import torch
 from muninn_tpu.ops.distance import Metric as JaxMetric
 from muninn_tpu.ops.pallas_beam_loop import beam_loop as jax_beam_loop
 from muninn_tpu.ops.pallas_beam_loop import pack_wide as jax_pack_wide
-from muninn_tpu.ops.pallas_beam_loop import split_id_bytes as jax_split_id_bytes
 from muninn_tpu.index.hnsw import _beam_search_level0 as jax_beam
 from muninn_tpu_torch.index.hnsw import _beam_search_level0
 from muninn_tpu_torch.ops import _build
 from muninn_tpu_torch.ops import beam_loop as beam_loop_mod
 from muninn_tpu_torch.ops.beam_loop import (
-    ID_LANES,
     MAX_CANDIDATES,
     MAX_EF,
     beam_loop,
     beam_loop_cuda,
     beam_loop_plain,
-    pack_wide,
-    split_id_bytes,
 )
 from muninn_tpu_torch.ops.distance import Metric, gathered_distances
 
 METRICS = ["l2", "cosine", "inner_product"]
-
-
-def test_split_id_bytes_equals_jax():
-    rng = np.random.default_rng(0)
-    ids = np.concatenate([[-1, 0, 1, 255, 256, 65535, 65536, (1 << 24) - 2],
-                          rng.integers(-1, 1 << 24, size=200)])
-    got = split_id_bytes(ids)
-    np.testing.assert_array_equal(got, jax_split_id_bytes(ids))
-    assert got.dtype == np.float32 and got.shape == (208, 3)
-    for bad in ([1 << 24], [-2]):
-        with pytest.raises(ValueError, match="slot ids"):
-            split_id_bytes(np.array(bad))
-
-
-def test_pack_wide_equals_jax():
-    rng = np.random.default_rng(1)
-    cap, r0, d = 32, 16, 128
-    v = rng.standard_normal((cap, d)).astype(np.float32)
-    nb = rng.integers(-1, cap, size=(cap, r0)).astype(np.int32)
-    want = np.asarray(jax_pack_wide(jnp.asarray(v, jnp.bfloat16), jnp.asarray(nb)),
-                      np.float32)
-    got = pack_wide(torch.from_numpy(v).bfloat16(), torch.from_numpy(nb))
-    assert got.dtype == torch.bfloat16 and got.shape == (cap, r0, d + ID_LANES)
-    np.testing.assert_array_equal(got.float().numpy(), want)
 
 
 def _grid(rng, shape):
@@ -123,7 +97,7 @@ def test_beam_loop_bit_equal_to_jax_and_fused_beam_on_grid(trial):
     packed = v16[torch.from_numpy(nbrs).clamp(min=0).long()]
     td, ti, n_exp, fresh = beam_loop_plain(
         torch.from_numpy(q), torch.from_numpy(init_d), torch.from_numpy(init_i),
-        packed, torch.from_numpy(nbrs), metric, ef, expand, patience, mi, xfer)
+        packed, torch.from_numpy(nbrs), metric, ef, expand, patience, mi)
     np.testing.assert_array_equal(ti.numpy(), np.asarray(ji))
     np.testing.assert_allclose(np.nan_to_num(td.numpy(), posinf=1e38),
                                np.nan_to_num(np.asarray(jd), posinf=1e38),
@@ -175,20 +149,6 @@ def test_beam_loop_matches_jax_on_gaussian_rows(metric):
     assert np.min(overlaps) >= 0.9, np.min(overlaps)
     agree = (ti == ji) & (ji >= 0)
     np.testing.assert_allclose(td[agree], jd[agree], rtol=1e-5, atol=1e-5)
-
-
-def test_pick_xfer_values_identical_and_unknown_raises():
-    ef, expand = 16, 4
-    x, nbrs, q, entries, v16 = _gaussian_graph(43, b=24)
-    init_d, init_i = _init_beam(q, entries, v16, "cosine", ef)
-    args = (torch.from_numpy(q), torch.from_numpy(init_d), torch.from_numpy(init_i),
-            v16[torch.from_numpy(nbrs).long()], torch.from_numpy(nbrs), "cosine",
-            ef, expand)
-    dd, di = beam_loop(*args, pick_xfer="dma")
-    sd, si = beam_loop(*args, pick_xfer="scalar")
-    assert torch.equal(di, si) and torch.equal(dd, sd)
-    with pytest.raises(ValueError, match="unknown pick_xfer 'sram'"):
-        beam_loop(*args, pick_xfer="sram")
 
 
 def test_beam_loop_refuses_bad_input():

@@ -14,6 +14,8 @@ without the suite's conftest:
 ``python -m pytest tests/test_torch_beam_step.py --noconftest -q -p no:cacheprovider``.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import itertools
 
 import numpy as np

@@ -7,6 +7,8 @@ and the port's top-m beam against its dots beam
 (``tests/test_hnsw.py:511-545``).
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

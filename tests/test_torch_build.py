@@ -7,6 +7,8 @@ source from elsewhere) and names each library by a hash that covers the
 headers too: a changed header rebuilds every source.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import os
 
 import pytest

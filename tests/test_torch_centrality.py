@@ -15,6 +15,8 @@ farther than that plus its own distance from the host engine: see
 ``_close``); a result is the same at any batch size.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import jax.numpy as jnp
 import networkx as nx
 import numpy as np

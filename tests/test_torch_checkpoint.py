@@ -10,6 +10,8 @@ raises, ``DeltaLog`` skips a torn final line and raises on a torn middle
 one, and a corrupted checkpoint loads to identical results or raises.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import json
 import shutil
 

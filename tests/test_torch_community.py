@@ -12,6 +12,8 @@ its Q at least JAX's device Q - 0.05), and by determinism (one seed, the
 same labels and Q).
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import jax.numpy as jnp
 import networkx as nx
 import numpy as np

@@ -1,6 +1,8 @@
 """muninn_tpu_torch.ops.distance against muninn_tpu.ops.distance on the CPU:
 the same seeded numpy inputs through both packages."""
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -7,6 +7,8 @@ index carried across with ``index.convert``. Data is continuous Gaussian,
 so there are no ties and the ids must be equal.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import os
 import subprocess
 import sys

@@ -8,6 +8,8 @@ for bit. JAX's kernel takes M in multiples of its row block, so a ragged M
 is padded at the call site and sliced, as its docstring asks.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

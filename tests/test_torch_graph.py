@@ -12,6 +12,8 @@ selector and ``GraphCache`` have test files of their own. JAX's
 has neither the chunked fixpoints nor the COO drop.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import subprocess
 import sys
 import textwrap

@@ -9,6 +9,8 @@ whole: build and search in each package. Sizes are small (n <= 3,000,
 d <= 128, m = 8, wave_size = 512).
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import json
 import os
 import subprocess
@@ -193,9 +195,9 @@ def test_search_on_carried_graph_matches_jax_fused(metric, tmp_path):
     jid, jdist = _jax_fused_search(j, q, k, ef)
 
     t.exact_small_n = 0  # the beam path at this size
-    assert t._maybe_packed() is None  # the CPU packs only when asked
+    assert t.tables.pack() is None  # the CPU packs only when asked
     t.pack_neighbors()
-    packed = t._maybe_packed()
+    packed = t.tables.pack()
     assert packed is not None and packed.dtype == torch.bfloat16
     assert packed.shape == (t.store.capacity, t.m0, d)
     tid, tdist = t.search(q, k=k, ef_search=ef)
@@ -203,7 +205,7 @@ def test_search_on_carried_graph_matches_jax_fused(metric, tmp_path):
 
     t.pack_budget_bytes = 0  # over budget: no table, the row path
     t.pack_neighbors()
-    assert t._maybe_packed() is None
+    assert t.tables.pack() is None
     rid, rdist = t.search(q, k=k, ef_search=ef)
     _assert_same_results(rid, rdist, jid, jdist, truth, k)
 
@@ -251,11 +253,11 @@ def test_search_degree_cached_and_matches_jax(carried):
     finally:
         j.search_bf16, j.search_degree, j.exact_small_n = False, None, 8192
     tid, tdist = t.search(q, k=k, ef_search=ef)
-    cache1 = t._sd_cache
+    cache1 = t.tables.slices
     assert cache1 is not None and cache1[4].shape == (t.store.capacity, 8)
     assert cache1[5].shape == (t.store.capacity, 8, 128) and cache1[5].is_contiguous()
     tid2, tdist2 = t.search(q, k=k, ef_search=ef)
-    assert t._sd_cache is cache1
+    assert t.tables.slices is cache1
     np.testing.assert_array_equal(tid, tid2)
     np.testing.assert_array_equal(tdist, tdist2)
     _assert_same_results(tid, tdist, np.asarray(jid), np.asarray(jdist), truth, k)
@@ -263,17 +265,17 @@ def test_search_degree_cached_and_matches_jax(carried):
     assert _recall(tid, truth) >= 0.5
     t.search_degree = 12
     t.search(q, k=k, ef_search=ef)
-    cache2 = t._sd_cache
+    cache2 = t.tables.slices
     assert cache2 is not cache1 and cache2[4].shape[1] == 12
     t.pack_neighbors()
     t.search(q, k=k, ef_search=ef)
-    assert t._sd_cache is not cache2 and t._sd_cache[2] is t._maybe_packed()
-    cache3 = t._sd_cache
+    assert t.tables.slices is not cache2 and t.tables.slices[2] is t.tables.pack()
+    cache3 = t.tables.slices
     t.insert(np.arange(3000, 3004), state["vectors"][:4])  # a wave: new tables
     t.search(q, k=k, ef_search=ef)
-    assert t._sd_cache is not cache3 and t._sd_cache[1] is t.neighbors0
+    assert t.tables.slices is not cache3 and t.tables.slices[1] is t.neighbors0
     t.search_degree = 16  # >= 2M: the whole rows, no slices
-    assert t._search_tables(t._maybe_packed(), None)[0] is t.neighbors0
+    assert t.tables.degree(t.tables.pack(), None)[0] is t.neighbors0
 
 
 def test_whole_path_on_carried_graph_matches_jax(carried, monkeypatch):
@@ -291,7 +293,7 @@ def test_whole_path_on_carried_graph_matches_jax(carried, monkeypatch):
     t.beam_whole = "force"
     tid, tdist = t.search(q, k=k, ef_search=ef)
     assert len(calls) == 1
-    assert t._maybe_packed() is not None  # "force" builds the shared table
+    assert t.tables.pack() is not None  # "force" builds the shared table
     _assert_same_results(tid, tdist, jid, jdist, truth, k)
     t.beam_whole = True
     t.search(q, k=k, ef_search=ef)
@@ -416,9 +418,9 @@ def test_int8_guidance_on_carried_graph_matches_jax(metric, tmp_path):
     j.exact_small_n = t.exact_small_n = 0
     j.search_quant = t.search_quant = "int8"
     jid, jdist = j.search(q, k=k, ef_search=ef)
-    assert t._maybe_packed() is None  # the row path with scales
+    assert t.tables.pack() is None  # the row path with scales
     tid, tdist = t.search(q, k=k, ef_search=ef)
-    assert t._v8 is not None and t._v8[0].dtype == torch.int8
+    assert t.tables.v8 is not None and t.tables.v8[0].dtype == torch.int8
     np.testing.assert_array_equal(tid, np.asarray(jid))
     np.testing.assert_allclose(tdist, np.asarray(jdist), rtol=1e-5, atol=1e-5)
     assert _recall(tid, truth) >= 0.9
@@ -440,9 +442,9 @@ def test_int8_packed_search_matches_row_dequant():
     t.search_quant = "int8"
     ids_row, d_row = t.search(q, k=k, ef_search=ef)
     t.pack_neighbors()
-    packed = t._maybe_packed()
+    packed = t.tables.pack()
     assert packed.dtype == torch.int8 and packed.shape == (t.store.capacity, t.m0, d)
-    assert t._packed_scales.shape == (t.store.capacity, t.m0)
+    assert t.tables.scales.shape == (t.store.capacity, t.m0)
     ids_pk, d_pk = t.search(q, k=k, ef_search=ef)
     # the two forms round the dequantized dot differently: a near-tie in
     # the guidance may swap a row; returned distances are the exact rescore
@@ -450,8 +452,8 @@ def test_int8_packed_search_matches_row_dequant():
     same = ids_pk == ids_row
     np.testing.assert_allclose(d_pk[same], d_row[same], rtol=1e-6, atol=1e-7)
     t.search_quant = "bf16"  # the int8 table no longer matches
-    assert t._maybe_packed(force=True).dtype == torch.bfloat16
-    assert t._packed_scales is None
+    assert t.tables.pack(force=True).dtype == torch.bfloat16
+    assert t.tables.scales is None
 
 
 def test_unknown_search_quant_raises():
@@ -526,7 +528,7 @@ def test_hnsw_edge_cases_and_errors():
     small_j = JaxHnswIndex(16, "l2", m=4, wave_size=64)
     for idx in (small, small_j):
         idx.insert(np.arange(100), x[:100])  # < 4 waves: two waves
-    assert len(small) == 100 and small._maybe_packed() is None
+    assert len(small) == 100 and small.tables.pack() is None
     tid, tdist = small.search(q, k=5)
     jid, jdist = small_j.search(q, k=5)
     np.testing.assert_array_equal(tid, np.asarray(jid))

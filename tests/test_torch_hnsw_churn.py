@@ -4,7 +4,7 @@ The same seeded numpy inputs go through both packages: insert waves after a
 bulk build and into an empty index (``insert_mode`` "exact" and "beam",
 ``mn_ru`` on and off), deletes with repair, the deferred upper-level wiring,
 the search routes without a promoted pool or with ``search_bf16 = False``,
-the MN-RU prune on JAX's own tie case, the greedy descent, and checkpoints
+the MN-RU prune on JAX's own tie case, and checkpoints
 carried across in both directions. Both sides run with
 ``build_precision = "highest"`` (the port ranks ``default`` by bf16
 operands on every device, JAX on the CPU in f32) and the same
@@ -14,6 +14,8 @@ two ids are float64 ties of the row's own vector, distances within 1e-5
 relative. Sizes are small (d = 16, m <= 6, waves of 64 rows).
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import json
 
 import jax.numpy as jnp
@@ -22,7 +24,6 @@ import pytest
 import torch
 
 from muninn_tpu.index.hnsw import HnswIndex as JaxHnswIndex
-from muninn_tpu.index.hnsw import _greedy_descent as jax_greedy_descent
 from muninn_tpu.index.hnsw import _prune_rows as jax_prune_rows
 from muninn_tpu.io.checkpoint import load_hnsw, save_hnsw
 from muninn_tpu_torch import HnswIndex
@@ -209,12 +210,12 @@ def test_search_after_churn_matches_jax(metric):
     a graph whose promoted nodes all died (no pool: the entry point seeds
     the beam), with bf16 guidance and without. No deleted id comes back."""
     j, t, q = _churned(metric)
-    assert t._routing_pool() is not None
+    assert t.tables.pool() is not None
     ids = _assert_same_search(j, t, q)
     assert not np.isin(ids, np.arange(0, 460, 5)).any()
     promoted = np.nonzero(t.levels >= 1)[0]
     _both(j, t, lambda idx: idx.delete(t.store.ids_of(promoted)))
-    assert t._routing_pool() is None and t.entry_point >= 0
+    assert t.tables.pool() is None and t.entry_point >= 0
     assert t.entry_point == j.entry_point
     for bf16 in (False, True):
         j.search_bf16 = t.search_bf16 = bf16
@@ -282,30 +283,6 @@ def _carry(j, path):
     state = dict(np.load(path / "arrays.npz"))
     state.update(json.loads((path / "manifest.json").read_text()))
     return state
-
-
-def test_greedy_descent_matches_jax(tmp_path):
-    """``_greedy_descent`` on a JAX graph built in waves and carried across:
-    the same end slots as JAX's from the entry point, for every query
-    target level, and from random starts."""
-    x = _rows(5, 420)
-    j, _ = _pair("l2", m=3)
-    j.insert(np.arange(200), x[:200])
-    j.insert(np.arange(200, 420), x[200:])
-    t = hnsw_index_from_numpy(_carry(j, tmp_path), device="cpu")
-    assert t.max_level >= 2
-    q = _rows(6, 40)
-    rng = np.random.default_rng(7)
-    for entry in (np.full(40, t.entry_point), rng.integers(0, 420, 40)):
-        lq = rng.integers(0, 3, 40).astype(np.int32)
-        e = entry.astype(np.int32)
-        want = jax_greedy_descent(jnp.asarray(q), jnp.asarray(e), jnp.asarray(lq),
-                                  j.store.vectors, j.hi_index, j.hi_neighbors,
-                                  jnp.int32(j.max_level), j.metric)
-        got = hnsw_mod._greedy_descent(
-            torch.from_numpy(q), torch.from_numpy(e), torch.from_numpy(lq),
-            t.store.vectors, t.hi_index, t.hi_neighbors, t.max_level, t.metric)
-        np.testing.assert_array_equal(got.numpy(), np.asarray(want))
 
 
 def test_checkpoints_after_waves_cross_both_ways(tmp_path):

@@ -6,6 +6,8 @@ determinism, and the full lifecycle down to an empty index and back
 reference test's sizes, knobs and floors.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import numpy as np
 import pytest
 

@@ -15,6 +15,8 @@ machine with the card it runs without the suite's conftest:
 ``python -m pytest tests/test_torch_hnsw_repair.py --noconftest -q -p no:cacheprovider``.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import copy
 from types import SimpleNamespace
 
@@ -125,7 +127,7 @@ def _former_delete_wave(self, ids):
     if self._hi_pending:
         self._hi_pending = [(sl[~np.isin(sl, slots)], lv[~np.isin(sl, slots)])
                             for sl, lv in self._hi_pending]
-    self._pool_dirty = True
+    self.tables.promotions_changed()
     dev = self.device
     slots_t = torch.as_tensor(slots, dtype=torch.long, device=dev)
     self.store.valid[slots_t] = False
@@ -139,7 +141,7 @@ def _former_delete_wave(self, ids):
     pool = pool[(pool >= 0) & ~np.isin(pool, slots)]
     aff_t = torch.as_tensor(aff, dtype=torch.long, device=dev)
     if len(aff) and len(pool):
-        kk = min(self.m0 + 1, len(hnsw_mod._pow2_pad(pool)))
+        kk = min(self.m0 + 1, len(hnsw_mod.pow2_pad(pool)))
         pool_t = torch.as_tensor(pool, dtype=torch.long, device=dev)
         pv = self.store.vectors[pool_t]
         for s in range(0, len(aff), hnsw_mod._REPAIR_ROWS):
@@ -157,9 +159,8 @@ def _former_delete_wave(self, ids):
         held = hi_rows[hi_rows < self.hi_neighbors.shape[0]]
         self.hi_neighbors[torch.as_tensor(held, dtype=torch.long, device=dev)] = -1
         self._hi_free = np.union1d(self._hi_free, hi_rows).astype(np.int32)
-    self._mark_dirty(aff_t)
-    self._mark_dirty(slots_t)
-    self._after_write()
+    self.tables.neighbours_changed(aff_t)
+    self.tables.neighbours_changed(slots_t)
     if self.entry_point in set(slots.tolist()):
         self._rescan_entry_point()
 
@@ -171,8 +172,8 @@ def _assert_same_state(a, b):
     assert (a.entry_point, a.max_level) == (b.entry_point, b.max_level)
     np.testing.assert_array_equal(a.levels, b.levels)
     np.testing.assert_array_equal(a._hi_free, b._hi_free)
-    if a._dirty is not None or b._dirty is not None:
-        assert torch.equal(a._dirty, b._dirty)
+    if a.tables.dirty is not None or b.tables.dirty is not None:
+        assert torch.equal(a.tables.dirty, b.tables.dirty)
 
 
 def _index(metric, reuse, device="cpu", n=700, d=16, m=4, wave=64, seed=5):

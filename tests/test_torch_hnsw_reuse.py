@@ -11,6 +11,8 @@ answers to float64 exact search over the live rows, the patched table to a
 whole re-gather bit for bit, and the write path's spans and host reads.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import numpy as np
 import pytest
 import torch
@@ -126,10 +128,10 @@ def test_steady_churn_keeps_slots_bounded_and_answers_exact():
 def _whole(idx):
     """The packed table and scales as one whole gather would build them."""
     nb = idx.neighbors0.clamp(min=0).long()
-    if idx._packed_quant == "int8":
-        vi, sc = idx._vecs8()
+    if idx.tables.quant == "int8":
+        vi, sc = idx.tables.vecs8()
         return vi[nb], sc[nb]
-    return idx._vecs16()[nb], None
+    return idx.tables.vecs16()[nb], None
 
 
 @pytest.mark.parametrize("quant", ["bf16", "int8"])
@@ -174,22 +176,22 @@ def test_patched_packed_table_equals_a_whole_gather(quant, seed):
             else:
                 live -= set(pick.tolist())
         if step == "grow":
-            assert idx.store.capacity > 1024 and idx._packed is None
+            assert idx.store.capacity > 1024 and idx.tables.packed is None
             idx.pack_neighbors()
         elif step == "delete0":
-            assert idx._dirty_rows is not None
+            assert idx.tables.dirty_rows is not None
         got = idx.search(q, k=8, ef_search=32)
-        assert idx._dirty_rows is None
+        assert idx.tables.dirty_rows is None
         packed, scales = _whole(idx)
-        assert torch.equal(idx._packed, packed)
+        assert torch.equal(idx.tables.packed, packed)
         if quant == "int8":
-            assert torch.equal(idx._packed_scales, scales)
-            vi, sc = idx._vecs8()
+            assert torch.equal(idx.tables.scales, scales)
+            vi, sc = idx.tables.vecs8()
             from muninn_tpu_torch.ops.distance import quantize_rows_int8
             wi, ws = quantize_rows_int8(idx.store.vectors)
             assert torch.equal(vi, wi) and torch.equal(sc, ws)
         else:
-            assert torch.equal(idx._vecs16(), idx.store.vectors.bfloat16())
+            assert torch.equal(idx.tables.vecs16(), idx.store.vectors.bfloat16())
         idx.pack_neighbors()
         again = idx.search(q, k=8, ef_search=32)
         np.testing.assert_array_equal(got[0], again[0])
@@ -225,8 +227,8 @@ def test_search_after_no_write_adds_no_op_or_read(churned):
     q = _rows(rng, 20)
     for _ in range(2):
         tracing.reset_host_syncs()
-        packed, spans, prof = _profiled(idx._maybe_packed)
-        assert packed is idx._packed and not prof.events() and not spans
+        packed, spans, prof = _profiled(idx.tables.pack)
+        assert packed is idx.tables.packed and not prof.events() and not spans
         assert not any(tracing.HOST_SYNCS.values())
         _, spans, _ = _profiled(lambda: idx.search(q, 10, ef_search=32))
         (root,) = [s for s in spans if s.name == "index.search"]
@@ -234,7 +236,7 @@ def test_search_after_no_write_adds_no_op_or_read(churned):
         assert root.attrs["host_syncs"] == beam.attrs["steps"] + 2
         assert not [s for s in spans if s.name == "hnsw.repack"]
     idx.delete(np.arange(10))
-    n_dirty = int(idx._dirty_rows.shape[0])
+    n_dirty = int(idx.tables.dirty_rows.shape[0])
     _, spans, _ = _profiled(lambda: idx.search(q, 10, ef_search=32))
     (repack,) = [s for s in spans if s.name == "hnsw.repack"]
     assert repack.attrs == {"rows": n_dirty, "whole": 0} and n_dirty >= 10

@@ -9,6 +9,8 @@ operation's ceiling, which the port's ``Graph`` passes; the routing cases
 assert the engines ``graph/routing.py``'s measured crossovers choose.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import numpy as np
 import pytest
 

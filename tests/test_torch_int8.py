@@ -16,6 +16,8 @@ of raw Gaussian rows reach ~30), hence distances within 1e-6, relative
 and absolute.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import json
 
 import jax.numpy as jnp

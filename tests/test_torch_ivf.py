@@ -13,6 +13,8 @@ the reference that the port does not copy. Ids must be equal except where
 the two rows are float64 ties for the query; every index lives on the CPU.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

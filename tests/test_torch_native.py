@@ -7,6 +7,8 @@ the port's library to the JAX package's library, and checks where the port
 builds it.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import subprocess
 import sys
 import textwrap

@@ -11,6 +11,8 @@ count against JAX's 32), the negative table, and the SGNS update fed JAX's
 own negatives. The host route runs the same C++ in both packages.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import subprocess
 import sys
 import textwrap

@@ -8,6 +8,8 @@ shift-doubling scan's short-pass artifact; the port's min is one
 asserts.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import jax.numpy as jnp
 import numpy as np
 import pytest

@@ -9,6 +9,8 @@ and expressions where the port's ``select`` equals JAX's row for row on
 the host route and on the device route.
 """
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import numpy as np
 import pytest
 

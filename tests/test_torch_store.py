@@ -3,6 +3,8 @@ the same sequence of appends, deletes and growth through both stores must
 leave the same state. The store only moves values, so the state must be
 equal, not close."""
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import numpy as np
 import pytest
 import torch

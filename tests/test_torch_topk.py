@@ -2,6 +2,8 @@
 seeded numpy inputs through both packages. Top-k and merges only move
 values, so results must be equal, not close."""
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import jax
 import jax.numpy as jnp
 import numpy as np

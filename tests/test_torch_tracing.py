@@ -3,6 +3,8 @@ request id per call, the counted host reads, the counter registry under
 its old names, and the spans' times against their ``torch.profiler``
 copies."""
 
+import torch_cpu  # noqa: F401  (first: one torch thread a worker)
+
 import statistics
 import subprocess
 import sys

@@ -324,17 +324,17 @@ def main() -> int:
                      seed=42, expand=8, wave_size=4096, device="cuda")
     hnsw.insert(torch.arange(n).numpy(), x)
     hnsw.pack_neighbors()
-    packed = hnsw._maybe_packed()
+    packed = hnsw.tables.pack()
     qc = qg[:chunk]
-    pool = hnsw._routing_pool()
-    pv = hnsw._pool_vecs(pool)
+    pool = hnsw.tables.pool()
+    pv = hnsw.tables.pool_vectors(pool)
     picks = hnsw_mod._route(qc, pool, pv, hnsw.metric, hnsw.route_entries)
     r = min(hnsw.route_entries, ef)
     ent = picks[:, :r]
     init_d = torch.full((chunk, ef), torch.inf, device="cuda")
     init_i = torch.full((chunk, ef), -1, dtype=torch.int32, device="cuda")
     init_d[:, :r] = torch.where(ent >= 0, gathered_distances(
-        qc, hnsw._vecs16()[ent.clamp(min=0).long()].float(), "cosine"), torch.inf)
+        qc, hnsw.tables.vecs16()[ent.clamp(min=0).long()].float(), "cosine"), torch.inf)
     init_i[:, :r] = ent
     mi = -(-ef // hnsw.expand) + 1
     largs = (qc, init_d, init_i, packed, hnsw.neighbors0, "cosine", ef, hnsw.expand, 0, mi)
@@ -344,7 +344,7 @@ def main() -> int:
                       beam.BIG, 0.0)
     hnsw.search_quant = "int8"
     hnsw.pack_neighbors()
-    packed8 = hnsw._maybe_packed()
+    packed8 = hnsw.tables.pack()
     hnsw.search_quant = "bf16"
     hnsw.pack_neighbors()
     print(f"{card}; chunk {chunk} queries, picks {tuple(picks.shape)}, blocks"
@@ -405,7 +405,7 @@ def main() -> int:
     # busy time and idle share), then with each part between synchronizes
     # (each part's kernel time, from the kernels inside its host range)
     parts = {"routing": "_route", "beam_loop": "beam_loop", "rescore": "_rescore_topk",
-             "chunk": "_search_topk_whole"}
+             "chunk": "_chunked"}
     saved = {attr: getattr(hnsw_mod, attr) for attr in parts.values()}
     act = [torch.profiler.ProfilerActivity.CPU, torch.profiler.ProfilerActivity.CUDA]
     kind = torch.autograd.DeviceType.CUDA

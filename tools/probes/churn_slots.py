@@ -12,7 +12,8 @@ prints its result line with one key more, ``probe``: the store's
 ``capacity``, ``high_watermark`` and live rows and whether the packed
 neighbour table was there, before and after the window; the window's beam
 steps by engine (``kernel`` or ``eager``, counted at each call of
-``ops.beam_step.step_engine`` times the steps of that beam);
+``ops.beam_step.step_engine``, once a search's route, times the steps of
+the beams that follow it);
 ``beam_step`` launches; and the packed rows re-gathered a request. With
 ``--trace`` the window runs under ``torch.profiler`` (``--trace 1``'s line)
 and ``probe`` also holds ``split``: the device-busy and device-idle ms a
@@ -96,12 +97,16 @@ def probe(run, seconds: float, t0: float, trace: bool = False) -> dict:
         return out
     hnsw_mod.step_engine, hnsw_mod.host_read = counted, read
     repacked = {"rows": 0}
-    repack = getattr(hnsw_mod.HnswIndex, "_repack_rows", None)
+    # the search tables' re-gather, or where --root's port has none, the
+    # index's own
+    owner = getattr(hnsw_mod, "SearchTables", hnsw_mod.HnswIndex)
+    name = "_repack" if owner is not hnsw_mod.HnswIndex else "_repack_rows"
+    repack = getattr(owner, name, None)
     if repack is not None:
         def counted_repack(self, rows):
             repacked["rows"] += int(rows.shape[0])
             return repack(self, rows)
-        hnsw_mod.HnswIndex._repack_rows = counted_repack
+        setattr(owner, name, counted_repack)
 
     def store() -> dict:
         st, ix = run.index.store, run.index
