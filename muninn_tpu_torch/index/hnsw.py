@@ -545,9 +545,11 @@ class HnswIndex:
         self._hi_count = 0
         # upper-level rows freed by deletes, ascending (with reuse_slots)
         self._hi_free = np.zeros(0, np.int32)
-        # promotions of insert waves, (slots, levels), wired into the upper
-        # levels by _flush_hi_wiring
-        self._hi_pending: list[tuple[np.ndarray, np.ndarray]] = []
+        # promotions of insert waves not yet wired into the upper levels (by
+        # _flush_hi_wiring): each slot's place in the queue, -1 where it
+        # holds none, from the running count _hi_seq
+        self._hi_queued = np.full((cap,), -1, np.int64)
+        self._hi_seq = 0
         self.entry_point = -1  # slot, not external id
         self.max_level = -1
         self.route_entries = 8  # beam seeds from the exact router
@@ -627,6 +629,7 @@ class HnswIndex:
                                                 value=-1)
         self._hi_index_np = np.pad(self._hi_index_np, (0, grow),
                                    constant_values=-1)
+        self._hi_queued = np.pad(self._hi_queued, (0, grow), constant_values=-1)
         need_hi = max(cap // max(self.m // 2, 2), 64)
         self._grow_hi(need_hi)
 
@@ -823,7 +826,8 @@ class HnswIndex:
     def _slot_state(self) -> dict:
         st = self.store
         return {"high_watermark": st.high_watermark, "live": len(st),
-                "capacity": st.capacity}
+                "capacity": st.capacity,
+                "queued": int(np.count_nonzero(self._hi_queued >= 0))}
 
     def _bulk_build(self, ids: np.ndarray, vectors) -> None:
         n = len(ids)
@@ -961,8 +965,9 @@ class HnswIndex:
         if len(promoted):
             hi_rows = self._alloc_hi(len(promoted))
             self._hi_index_np[slots[promoted]] = hi_rows
-            self._hi_pending.append((slots[promoted].astype(np.int32),
-                                     levels[promoted].astype(np.int32)))
+            self._hi_queued[slots[promoted]] = np.arange(
+                self._hi_seq, self._hi_seq + len(promoted))
+            self._hi_seq += len(promoted)
             self.tables.promotions_changed()
 
         slots_t = torch.as_tensor(slots, device=self.device)
@@ -1035,17 +1040,22 @@ class HnswIndex:
         self.tables.neighbours_changed(at)
         self.tables.neighbours_changed(aff)
 
+    def _queued_promotions(self) -> tuple[np.ndarray, np.ndarray]:
+        """The promotions queued for ``_flush_hi_wiring``, ``(slots,
+        levels)`` int32, in the order the waves queued them: a slot deleted
+        and promoted again goes to the end."""
+        slots = np.flatnonzero(self._hi_queued >= 0)
+        slots = slots[np.argsort(self._hi_queued[slots])].astype(np.int32)
+        return slots, self.levels[slots]
+
     def _flush_hi_wiring(self) -> None:
         """Wire every queued promotion into the upper levels in one exact
         pass (``hnsw.py:1303-1328``); nodes deleted since they were queued
         are dropped. Deferral changes nothing: upper levels are wired
         exactly over each level's whole population. Called before an
         export (``index.convert.hnsw_index_to_numpy``)."""
-        if not self._hi_pending:
-            return
-        slots = np.concatenate([sl for sl, _ in self._hi_pending])
-        levels = np.concatenate([lv for _, lv in self._hi_pending])
-        self._hi_pending = []
+        slots, levels = self._queued_promotions()
+        self._hi_queued[slots] = -1
         alive = self.levels[slots] >= 1
         slots, levels = slots[alive], levels[alive]
         if len(slots) == 0:
@@ -1108,9 +1118,7 @@ class HnswIndex:
         hi_rows = self._hi_index_np[slots]
         hi_rows = hi_rows[hi_rows >= 0]
         self._hi_index_np[slots] = -1
-        if self._hi_pending:
-            self._hi_pending = [(sl[~np.isin(sl, slots)], lv[~np.isin(sl, slots)])
-                                for sl, lv in self._hi_pending]
+        self._hi_queued[slots] = -1
         self.tables.promotions_changed()
         if self.store.reuse_slots and len(hi_rows):
             # rows queued but never wired may lie past the table

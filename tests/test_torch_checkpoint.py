@@ -122,7 +122,12 @@ def test_hnsw_after_waves_and_deletes_crosses_both_ways(tmp_path):
         idx.insert(np.arange(300), x[:300])
         idx.insert(np.arange(300, 420), x[300:])
         idx.delete(np.arange(0, 420, 9))
-    assert t._hi_pending
+    # the port's queue, in order, is JAX's queued waves one after another
+    ts, tl = t._queued_promotions()
+    assert len(ts)
+    for got, part in ((ts, 0), (tl, 1)):
+        np.testing.assert_array_equal(
+            got, np.concatenate([np.asarray(w[part]) for w in j._hi_pending]))
 
     def search(idx):
         idx.exact_small_n = 0
@@ -130,7 +135,7 @@ def test_hnsw_after_waves_and_deletes_crosses_both_ways(tmp_path):
         return idx.search(q, k=5, ef_search=24)
 
     tj, jt = _cross(tmp_path, "hnsw", j, t, search, q, x, "cosine")
-    assert not t._hi_pending
+    assert not len(t._queued_promotions()[0])
     ids = search(tj)[0]
     assert not np.isin(ids, np.arange(0, 420, 9)).any()
 

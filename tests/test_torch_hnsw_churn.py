@@ -116,6 +116,17 @@ def _both(j, t, fn):
     fn(t)
 
 
+def _assert_queue_matches(j, t):
+    """The port's queued promotions, in queue order, equal JAX's queued
+    waves one after another; returns the port's queued slots."""
+    ts, tl = t._queued_promotions()
+    js = np.concatenate([np.asarray(sl) for sl, _ in j._hi_pending] or [[]])
+    jl = np.concatenate([np.asarray(lv) for _, lv in j._hi_pending] or [[]])
+    np.testing.assert_array_equal(ts, js)
+    np.testing.assert_array_equal(tl, jl)
+    return ts
+
+
 @pytest.mark.parametrize("metric,mn_ru", [("l2", True), ("l2", False),
                                           ("cosine", True), ("inner_product", False)])
 def test_bulk_then_exact_waves_match_jax(metric, mn_ru):
@@ -126,10 +137,10 @@ def test_bulk_then_exact_waves_match_jax(metric, mn_ru):
     j, t = _pair(metric, mn_ru=mn_ru)
     _both(j, t, lambda idx: idx.insert(np.arange(300), x[:300]))
     _both(j, t, lambda idx: idx.insert(np.arange(300, 428), x[300:428]))
-    assert t._hi_pending and len(t._hi_pending) == len(j._hi_pending)
+    assert len(_assert_queue_matches(j, t))
     _assert_graph_matches(j, t, metric)
     _both(j, t, lambda idx: idx._flush_hi_wiring())
-    assert not t._hi_pending
+    assert not len(_assert_queue_matches(j, t))
     np.testing.assert_array_equal(t.hi_index.numpy(), np.asarray(j.hi_index))
     _assert_hi_matches(j, t, metric)
 
@@ -158,16 +169,13 @@ def test_delete_matches_jax(metric):
     j, t = _pair(metric, m=4)
     _both(j, t, lambda idx: idx.insert(np.arange(200), x[:200]))
     _both(j, t, lambda idx: idx.insert(np.arange(200, 400), x[200:400]))
-    pending = np.concatenate([sl for sl, _ in t._hi_pending])
+    pending = _assert_queue_matches(j, t)
     ep = t.entry_point
     dead = t.store.ids_of(np.unique(np.concatenate(
         [[ep, pending[0]], np.arange(3, 400, 11)])))
     _both(j, t, lambda idx: idx.delete(dead))
     assert t.entry_point != ep and t.levels[ep] == -1
-    for (ts, tl), (js, jl) in zip(t._hi_pending, j._hi_pending, strict=True):
-        np.testing.assert_array_equal(ts, js)
-        np.testing.assert_array_equal(tl, jl)
-    assert pending[0] not in np.concatenate([sl for sl, _ in t._hi_pending])
+    assert pending[0] not in _assert_queue_matches(j, t)
     _assert_graph_matches(j, t, metric)
     more = np.setdiff1d(np.arange(100, 180), dead)
     assert len(more) > WAVE  # two delete waves
@@ -296,10 +304,10 @@ def test_checkpoints_after_waves_cross_both_ways(tmp_path):
     _both(j, t, lambda idx: idx.insert(np.arange(300), x[:300]))
     _both(j, t, lambda idx: idx.insert(np.arange(300, 420), x[300:]))
 
+    assert len(_assert_queue_matches(j, t))  # before save_hnsw flushes j's
     tj = hnsw_index_from_numpy(_carry(j, tmp_path / "jax"), device="cpu")
-    assert t._hi_pending
     state = hnsw_index_to_numpy(t)
-    assert not t._hi_pending
+    assert not len(t._queued_promotions()[0])
     out = tmp_path / "port"
     out.mkdir()
     np.savez(out / "arrays.npz", **{k: state[k] for k in (

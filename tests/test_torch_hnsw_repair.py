@@ -124,9 +124,7 @@ def _former_delete_wave(self, ids):
     hi_rows = self._hi_index_np[slots]
     hi_rows = hi_rows[hi_rows >= 0]
     self._hi_index_np[slots] = -1
-    if self._hi_pending:
-        self._hi_pending = [(sl[~np.isin(sl, slots)], lv[~np.isin(sl, slots)])
-                            for sl, lv in self._hi_pending]
+    self._hi_queued[slots] = -1
     self.tables.promotions_changed()
     dev = self.device
     slots_t = torch.as_tensor(slots, dtype=torch.long, device=dev)
@@ -172,6 +170,7 @@ def _assert_same_state(a, b):
     assert (a.entry_point, a.max_level) == (b.entry_point, b.max_level)
     np.testing.assert_array_equal(a.levels, b.levels)
     np.testing.assert_array_equal(a._hi_free, b._hi_free)
+    np.testing.assert_array_equal(a._hi_queued, b._hi_queued)
     if a.tables.dirty is not None or b.tables.dirty is not None:
         assert torch.equal(a.tables.dirty, b.tables.dirty)
 

@@ -287,6 +287,103 @@ def test_write_spans_and_host_reads(churned):
     assert all(p.attrs["rows"] > 0 for p in prunes)
 
 
+class _ListQueue:
+    """Queued promotions as a list of waves: each insert wave's promoted
+    slots and levels appended, each delete's slots filtered out of every
+    queued wave."""
+
+    def __init__(self):
+        self.waves = []
+
+    def inserted(self, idx, ids):
+        sl = idx.store.slots_of(ids).astype(np.int32)
+        lv = idx.levels[sl]
+        self.waves.append((sl[lv >= 1], lv[lv >= 1]))
+
+    def deleted(self, slots):
+        self.waves = [(sl[~np.isin(sl, slots)], lv[~np.isin(sl, slots)])
+                      for sl, lv in self.waves]
+
+    def get(self):
+        none = [np.zeros(0, np.int32)]
+        return (np.concatenate([sl for sl, _ in self.waves] or none),
+                np.concatenate([lv for _, lv in self.waves] or none))
+
+
+@pytest.mark.parametrize("metric", ["l2", "cosine"])
+def test_long_churn_queues_promotions_as_a_list_would(metric):
+    """48 rounds of one delete wave and one insert wave at a steady live
+    count, 8 of each delete's 48 ids rows whose promotion is still queued,
+    upserted, so that the round's wave takes their slots back: after every
+    write the queued promotions equal ``_ListQueue``'s, in order (a slot
+    deleted and promoted again goes to the end), and never outnumber the
+    live promoted rows. Every 16 rounds the index and a twin fed the same writes, whose
+    flush reads the list, wire their upper levels: ``hi_index`` and
+    ``hi_neighbors`` are equal. The last writes' spans carry the queue's
+    length as ``queued``."""
+    rng = np.random.default_rng(12)
+    kw = dict(m=4, ef_construction=32, wave_size=64, capacity=1024, seed=9,
+              device="cpu")
+    idx, twin = HnswIndex(D, metric, **kw), HnswIndex(D, metric, **kw)
+    model = _ListQueue()
+    twin._queued_promotions = model.get
+    x = _rows(rng, 400)
+    for t in (idx, twin):
+        t.insert(np.arange(400), x)  # bulk: nothing queued
+    live, next_id, requeued = set(range(400)), 400, 0
+
+    def check():
+        got, want = idx._queued_promotions(), model.get()
+        for g, w in zip(got, want):
+            np.testing.assert_array_equal(g, w)
+        assert len(got[0]) <= np.count_nonzero(idx.levels >= 1)
+        return got[0]
+
+    for r in range(48):
+        queued = idx.store.ids_of(check())
+        hot = rng.choice(queued, min(len(queued), 8), replace=False)
+        rest = np.setdiff1d(np.array(sorted(live)), hot)
+        pick = np.concatenate([hot, rng.choice(rest, 48 - len(hot), replace=False)])
+        ups, new = pick[:24], np.arange(next_id, next_id + 24)
+        next_id += 24
+        put, vecs = np.concatenate([ups, new]), _rows(rng, 48)
+        dead = idx.store.slots_of(pick)
+        was_queued = dead[idx._hi_queued[dead] >= 0]
+        last, roots = r == 47, {}
+
+        def write(name, fn):
+            # the last round's writes under a profiler, the index's spans kept
+            if last:
+                _, spans, _ = _profiled(lambda: fn(idx))
+                (roots[name],) = [s for s in spans if s.name == name]
+            else:
+                fn(idx)
+            fn(twin)
+
+        write("index.delete", lambda t: t.delete(pick))
+        model.deleted(dead)
+        queued = check()
+        if last:
+            assert roots["index.delete"].attrs["queued"] == len(queued) > 0
+        write("index.insert", lambda t: t.insert(put, vecs))
+        model.inserted(idx, put)
+        live.difference_update(pick.tolist())
+        live.update(put.tolist())
+        queued = check()
+        requeued += np.isin(model.waves[-1][0], was_queued).sum()
+        assert idx.store.high_watermark == 400 and len(idx) == 400
+        if last:
+            assert roots["index.insert"].attrs["queued"] == len(queued) > 0
+        if r % 16 == 15:
+            for t in (idx, twin):
+                t._flush_hi_wiring()
+            model.waves = []
+            assert not len(check())
+            assert torch.equal(idx.hi_index, twin.hi_index)
+            assert torch.equal(idx.hi_neighbors, twin.hi_neighbors)
+    assert requeued > 0  # slots taken back while queued were queued again
+
+
 @pytest.mark.parametrize("reuse", [True, False])
 def test_checkpoint_state_rebuilds_the_free_lists(reuse):
     """A state carried through ``hnsw_index_to_numpy`` after deletes: with

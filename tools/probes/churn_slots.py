@@ -14,7 +14,11 @@ neighbour table was there, before and after the window; the window's beam
 steps by engine (``kernel`` or ``eager``, counted at each call of
 ``ops.beam_step.step_engine``, once a search's route, times the steps of
 the beams that follow it);
-``beam_step`` launches; and the packed rows re-gathered a request. With
+``beam_step`` launches; the packed rows re-gathered a request; the host
+ms of ``index.delete`` a request (its call, timed on the host clock) in the
+window's first and last quarter, which stay level where a delete's work does
+not grow with the requests served; and the promotions still queued for the
+upper levels at the window's end (``queued``). With
 ``--trace`` the window runs under ``torch.profiler`` (``--trace 1``'s line)
 and ``probe`` also holds ``split``: the device-busy and device-idle ms a
 request inside the program's ``index.delete`` (and apart: its
@@ -76,6 +80,26 @@ def _base_ns(run, searches) -> float:
     return raw.start_ns - first.start * 1e3
 
 
+def queued(index) -> int | None:
+    """The promotions queued for the upper levels: the port's per-slot mark,
+    or where ``--root``'s port keeps a list of waves, their rows."""
+    if hasattr(index, "_queued_promotions"):
+        return len(index._queued_promotions()[0])
+    waves = getattr(index, "_hi_pending", None)
+    return None if waves is None else sum(len(sl) for sl, _ in waves)
+
+
+def quarters(calls, start: float, seconds: float) -> dict:
+    """The mean ms of the ``(start, ms)`` calls that start in the window's
+    first and last quarter, and how many did."""
+    out = {}
+    for name, lo, hi in (("first", start, start + seconds / 4),
+                         ("last", start + 3 * seconds / 4, start + seconds)):
+        ms = [m for t, m in calls if lo <= t < hi]
+        out[name] = {"ms": sum(ms) / len(ms) if ms else None, "calls": len(ms)}
+    return out
+
+
 def probe(run, seconds: float, t0: float, trace: bool = False) -> dict:
     """Set up ``run``, measure, free, judge; its result line with
     ``probe``."""
@@ -108,6 +132,17 @@ def probe(run, seconds: float, t0: float, trace: bool = False) -> dict:
             return repack(self, rows)
         setattr(owner, name, counted_repack)
 
+    deletes = []  # (start, host ms) of each delete call
+    delete = hnsw_mod.HnswIndex.delete
+
+    def timed_delete(self, ids):
+        t = time.perf_counter()
+        try:
+            return delete(self, ids)
+        finally:
+            deletes.append((t, (time.perf_counter() - t) * 1e3))
+    hnsw_mod.HnswIndex.delete = timed_delete
+
     def store() -> dict:
         st, ix = run.index.store, run.index
         return {"capacity": st.capacity, "high_watermark": st.high_watermark,
@@ -118,8 +153,13 @@ def probe(run, seconds: float, t0: float, trace: bool = False) -> dict:
     steps.update(kernel=0, eager=0, beams=0)
     repacked["rows"] = 0
     launches = tracing.LAUNCHES.get("beam_step", 0)
+    deletes.clear()
     run.window(seconds, trace)
+    # a churn request starts with its delete: the first one opens the window
+    start = deletes[0][0] if deletes else 0.0
     out = {"before": before, "after": store(),
+           "delete_ms": quarters(deletes, start, run.window_s),
+           "queued": queued(run.index),
            "steps": {k: steps[k] for k in ("kernel", "eager", "beams")},
            "beam_step_launches": tracing.LAUNCHES.get("beam_step", 0) - launches,
            "repacked_rows_per_req": (repacked["rows"] / run.attempted
